@@ -12,10 +12,10 @@ RUN apt-get update && DEBIAN_FRONTEND=noninteractive apt-get install -y --no-ins
 WORKDIR /app
 COPY . /app
 
-# CPU jaxlib: the image is for CI / local parity runs. On a TPU VM install
-# jax[tpu] instead (the package code is identical; platform selection is
-# runtime).
-RUN pip install --no-cache-dir "jax[cpu]>=0.4.30" flax numpy pytest \
+# CPU jaxlib: the image is for CI / local parity runs. On an NVIDIA GPU
+# host install jax[cuda12] instead (the package code is identical; platform
+# selection is runtime).
+RUN pip install --no-cache-dir "jax[cpu]>=0.4.30" numpy pytest \
     && pip install --no-cache-dir -e .
 
 # Build the native C++ host oracles once so tests/test_native.py is covered.

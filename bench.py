@@ -1,26 +1,19 @@
-"""Benchmark: batched unicycle MPC solves/sec on one TPU chip.
-
-``BENCH_MODE=latency`` switches to BASELINE.json metric #1 — single
-quadrotor N=100 IPDDP solve wall-clock to the solver's optimality
-certificate (tol=1e-4 on-chip; honest because matmul_precision defaults
-to exact-f32 — see bench_quadrotor.py) — and
-prints that JSON line instead. vs_baseline there is the speedup over the
-round-1 recorded 4783 ms.
-
-BASELINE.json north-star: >10k batched unicycle MPC solves/sec on a single
-v5e chip (the reference C++ library is strictly sequential per solve — no
-analogous number exists; 10k/s is the target set in BASELINE.md).
+"""Benchmark: batched unicycle MPC solves per second on one NVIDIA GPU.
 
 One "solve" = a cold control-limited unicycle MPC solve (H=20, dt=0.05,
-CLDDP with BoxQP, 10 iterations max) — the per-tick workload of a
-receding-horizon controller. The whole vmapped batch of solves is a single
-XLA program; throughput = batch / wall-clock. With the whole-solve fused
-kernel (ops/pallas/mega_clddp.py) one v5e measures 3.28M/3.73M/3.94M/4.08M/
-4.17M solves/s at B=16384/32768/65536/131072/262144 (plateau at 262144,
-the default); the per-pass engines (CDDP_TPU_NO_MEGA=1) measure 569k at
-B=16384 — the mega kernel is a 5.8x same-batch win on hardware.
+CLDDP with BoxQP, 10 iterations max, f32) — the per-tick workload of a
+receding-horizon controller. The whole batch is one jitted
+``batched_solve``; on the GPU it runs as the whole-solve Pallas kernel
+(ops/pallas/mega_clddp.py). Throughput = batch / wall-clock of a warm
+call, ending in ``block_until_ready``.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+    python bench.py        # BENCH_BATCH (default 262144), BENCH_REPS (20)
+
+Prints the device (platform, kind, count, the card's name and power limit)
+and the compile time on stderr, and ONE JSON line on stdout:
+{"metric", "value", "unit", "vs_baseline"}, where vs_baseline is the
+ratio to 10,000 solves/s, the project's original throughput target (a
+target, not a measurement). Exits non-zero without a GPU.
 """
 
 import json
@@ -32,94 +25,46 @@ import jax
 import jax.numpy as jnp
 
 
-def latency_main():
-    import bench_quadrotor
-    import contextlib
-    import io
-
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        bench_quadrotor.main()
-    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
-    print(
-        json.dumps(
-            {
-                "metric": rec["metric"],
-                "value": rec["value"],
-                "unit": "ms",
-                "vs_baseline": rec["vs_round1_4783ms"],
-            }
-        )
-    )
-
-
 def main():
-    if os.environ.get("BENCH_MODE") == "latency":
-        latency_main()
-        return
-    dtype = jnp.float32  # TPU-native precision for the throughput path
-    batch = int(os.environ.get("BENCH_BATCH", "262144"))
-    # 20 reps: at ~31 ms/rep the 5-rep default under-amortized per-rep
-    # dispatch by ~8% (33.9 ms/rep measured at reps=5 vs 31.0 at reps>=10).
-    reps = int(os.environ.get("BENCH_REPS", "20"))
-
     import cddp_tpu as ct
     from cddp_tpu.parallel.batch import batched_solve
+    from cddp_tpu.utils import enable_compile_cache
+    from cddp_tpu.utils.profiling import gpu_device_info
     from __graft_entry__ import _flagship_problem
 
-    prob = _flagship_problem(horizon=20, dtype=dtype)
-    opts = ct.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    print(f"device: {json.dumps(gpu_device_info())}", file=sys.stderr)
+    print(f"compile cache: {enable_compile_cache()}", file=sys.stderr)
+    batch = int(os.environ.get("BENCH_BATCH", "262144"))
+    reps = int(os.environ.get("BENCH_REPS", "20"))
 
-    key = jax.random.PRNGKey(0)
-    x0 = jax.random.uniform(
-        key, (batch, 3), dtype, minval=-0.5, maxval=0.5
-    )
+    prob = _flagship_problem(horizon=20, dtype=jnp.float32)
+    opts = ct.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    x0 = jax.random.uniform(jax.random.PRNGKey(0), (batch, 3), jnp.float32,
+                            minval=-0.5, maxval=0.5)
 
     @jax.jit
     def run(x0_batch):
         sol = batched_solve(prob, x0_batch, solver="CLDDP", options=opts)
         return sol.final_objective, sol.control_trajectory
 
-    # Warmup / compile. If the whole-solve fused engine fails on this
-    # hardware/toolchain combination (a Mosaic codegen regression would
-    # surface here), fall back to the per-pass engines rather than losing
-    # the benchmark artifact — the fallback is the previously-recorded
-    # ~500k solves/s path.
-    try:
-        costs, _ = run(x0)
-        costs.block_until_ready()
-    except Exception as e:  # noqa: BLE001 — any compile/runtime failure
-        print(f"# whole-solve engine failed ({type(e).__name__}); "
-              f"falling back to per-pass engines", file=sys.stderr)
-        os.environ["CDDP_TPU_NO_MEGA"] = "1"
-        jax.clear_caches()
-
-        @jax.jit
-        def run(x0_batch):  # noqa: F811
-            sol = batched_solve(prob, x0_batch, solver="CLDDP", options=opts)
-            return sol.final_objective, sol.control_trajectory
-
-        costs, _ = run(x0)
-        costs.block_until_ready()
-    assert bool(jnp.all(jnp.isfinite(costs))), "non-finite costs in warmup"
+    t0 = time.perf_counter()
+    costs, _ = jax.block_until_ready(run(x0))
+    print(f"compile + first call: {time.perf_counter() - t0:.2f} s",
+          file=sys.stderr)
+    if not bool(jnp.all(jnp.isfinite(costs))):
+        raise SystemExit("non-finite costs")
 
     t0 = time.perf_counter()
     for _ in range(reps):
         costs, U = run(x0)
-    costs.block_until_ready()
-    elapsed = time.perf_counter() - t0
-
-    solves_per_sec = batch * reps / elapsed
-    print(
-        json.dumps(
-            {
-                "metric": "batched_unicycle_mpc_solves_per_sec",
-                "value": round(solves_per_sec, 1),
-                "unit": "solves/s",
-                "vs_baseline": round(solves_per_sec / 10000.0, 3),
-            }
-        )
-    )
+    jax.block_until_ready((costs, U))
+    solves_per_sec = batch * reps / (time.perf_counter() - t0)
+    print(json.dumps({
+        "metric": "batched_unicycle_mpc_solves_per_sec",
+        "value": round(solves_per_sec, 1),
+        "unit": "solves/s",
+        "vs_baseline": round(solves_per_sec / 10000.0, 3),
+    }))
 
 
 if __name__ == "__main__":

@@ -1,30 +1,32 @@
-"""Certified-fleet pipeline (VERDICT r4 item 3): the f32 whole-solve kernel
-fleet on the TPU, then a batched float64 ``cddp_tpu.polish`` re-solve on the
-host — killing the documented f32 p99 cost tail with a real certificate.
+"""Certified-fleet pipeline: an f32 IPDDP fleet on the GPU, then a batched
+float64 ``cddp_tpu.polish`` re-solve on the host CPU, which certifies
+every instance at a bar the f32 fleet cannot reach.
 
-Two stages (different JAX platforms / x64 settings, one per process):
+Two stages, one process each (the polish stage runs JAX on the CPU with
+x64 and never opens the card):
 
-  BENCH_STAGE=fleet  timeout 1700 python bench_fleet_polish.py   # on TPU
-  BENCH_STAGE=polish timeout 1700 python bench_fleet_polish.py   # on host
+  BENCH_STAGE=fleet  python bench_fleet_polish.py   # on the GPU
+  BENCH_STAGE=polish python bench_fleet_polish.py   # on the host CPU
 
-The fleet stage runs the bench_ipddp_fleet box configuration (B=1024) at a
-converging budget (default 20 iterations; BENCH_FLEET_ITERS=10 reproduces
-the mid-solve budget where the f32 knife-edge tail was measured at p99
-rel-cost 5e-2) through ``parallel.batched_solve`` and stages the full
-Solution to /tmp. The polish stage rebuilds the Solution, runs ``polish()``
-(dual-warm when every instance converged, else trajectory-seeded) in f64 on
-CPU at the 1e-4 certificate bar f32 cannot reach on this family, and prints
-ONE JSON line with the end-to-end certified throughput and the pre-polish
-cost-tail percentiles.
+The fleet stage runs the unicycle box fleet (B=1024) at a converging
+budget (default 20 iterations; BENCH_FLEET_ITERS=10 gives the mid-solve
+budget) through ``parallel.batched_solve`` and stages the full Solution in
+``<checkout>/.bench_stage/``. The polish stage rebuilds the Solution, runs
+``polish()`` (dual-warm when every instance converged, else
+trajectory-seeded) in f64 at the 1e-4 certificate bar, and prints ONE JSON
+line with the end-to-end certified throughput and the pre-polish cost-tail
+percentiles.
 """
 
 import json
 import os
+import sys
 import time
 
 import numpy as np
 
-STAGE_FILE = "/tmp/bench_fleet_polish_stage.npz"
+STAGE_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          ".bench_stage", "fleet_polish.npz")
 
 
 def _problem(ct, jnp, dtype):
@@ -52,7 +54,12 @@ def stage_fleet():
 
     import cddp_tpu as ct
     from cddp_tpu.parallel.batch import batched_solve
+    from cddp_tpu.utils import enable_compile_cache
+    from cddp_tpu.utils.profiling import gpu_device_info
 
+    device = gpu_device_info()
+    print(f"device: {json.dumps(device)}", file=sys.stderr)
+    print(f"compile cache: {enable_compile_cache()}", file=sys.stderr)
     dtype = jnp.float32
     B = int(os.environ.get("BENCH_BATCH", "1024"))
     reps = int(os.environ.get("BENCH_REPS", "5"))
@@ -77,6 +84,7 @@ def stage_fleet():
     jax.block_until_ready(sol)
     t1 = (time.perf_counter() - t0) / reps
 
+    os.makedirs(os.path.dirname(STAGE_FILE), exist_ok=True)
     np.savez(
         STAGE_FILE,
         t1=t1, B=B,
@@ -95,7 +103,7 @@ def stage_fleet():
     print(json.dumps({
         "metric": "fleet_stage_solves_per_sec",
         "value": round(B / t1, 1), "unit": "solves/s",
-        "staged": STAGE_FILE,
+        "device_kind": device["device_kind"], "staged": STAGE_FILE,
     }))
 
 
@@ -130,8 +138,8 @@ def stage_polish():
     )
 
     # The polish certificate bar: 1e-4 residuals in FLOAT64 — the bar the
-    # f32 fleet cannot certify on this family (the envelope test in
-    # tests/test_mega_ipddp.py), which is what the pipeline exists for.
+    # f32 fleet cannot certify on this family, which is what the pipeline
+    # exists for.
     tol = float(os.environ.get("BENCH_POLISH_TOL", "1e-4"))
     t0 = time.perf_counter()
     out = jax.block_until_ready(ct.polish(prob, sol, tolerance=tol))

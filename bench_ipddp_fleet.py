@@ -1,15 +1,17 @@
-"""On-chip A/B for the IPDDP whole-solve kernel (VERDICT r3 items 1 & 5):
-box fleet (the flagship unicycle MPC) and obstacle fleet (BASELINE config 3,
-control box + keep-out BallConstraint), fused kernel vs the per-pass
-engines (CDDP_TPU_NO_MEGA kill switch), with parity stats on the SAME
-batch. Prints one JSON line per config for the record; not the driver
-metric (bench.py is).
+"""IPDDP fleets on one NVIDIA GPU: the flagship unicycle box fleet, the
+obstacle fleet (control box + keep-out BallConstraint) and the HCW
+rendezvous fleet (control box + terminal equality x_N = 0), each
+vmap-batched through ``batched_solve`` and timed in this one process.
+Prints the device on stderr and one JSON line per configuration; exits
+non-zero without a GPU.
 
-Run on the TPU: timeout 590 python bench_ipddp_fleet.py
+    python bench_ipddp_fleet.py   # BENCH_BATCH (4096), BENCH_REPS (5),
+                                  # BENCH_CONFIG (one name, default all)
 """
 
 import json
 import os
+import sys
 import time
 
 import jax
@@ -53,12 +55,8 @@ def _problems(dtype):
         ct.ball_constraint(jnp.asarray(0.4, dtype),
                            jnp.asarray([1.0, 1.0], dtype)),
     )
-    # Rendezvous fleet (VERDICT r4 item 4): HCW relative motion, control
-    # box, terminal equality x_N = 0 — the p+1 reduced-LQR regime through
-    # the whole-solve kernel. N=20 keeps the costate-free te footprint
-    # inside the measured scoped-VMEM limit at nx=6 (N=24 compiled 19.3M
-    # against the 16M cap — the te gate in mega_ipddp is calibrated to
-    # this measurement).
+    # Rendezvous fleet: HCW relative motion, control box, terminal
+    # equality x_N = 0 (the p+1 reduced-LQR regime).
     from cddp_tpu.models import HCW
 
     dt3 = 30.0
@@ -84,7 +82,6 @@ def _problems(dtype):
 
 
 def _bench(problem, x0, opts, reps):
-    import cddp_tpu as ct
     from cddp_tpu.parallel.batch import batched_solve
 
     @jax.jit
@@ -104,19 +101,18 @@ def _bench(problem, x0, opts, reps):
 
 def main():
     import cddp_tpu as ct
+    from cddp_tpu.utils import enable_compile_cache
+    from cddp_tpu.utils.profiling import gpu_device_info
 
+    device = gpu_device_info()
+    print(f"device: {json.dumps(device)}", file=sys.stderr)
+    print(f"compile cache: {enable_compile_cache()}", file=sys.stderr)
     dtype = jnp.float32
     batch = int(os.environ.get("BENCH_BATCH", "4096"))
     reps = int(os.environ.get("BENCH_REPS", "5"))
     opts = ct.CDDPOptions(max_iterations=10, tolerance=1e-4)
     key = jax.random.PRNGKey(0)
-
-    only = os.environ.get("BENCH_CONFIG")  # run one config per process
-    # One ENGINE per process fits the ~10-min TPU compile budget:
-    # BENCH_ENGINE=kernel|perpass runs that engine and stages its results
-    # to /tmp; the perpass leg prints the comparison when the kernel
-    # leg's stage file exists. Unset = both engines in-process.
-    engine = os.environ.get("BENCH_ENGINE")
+    only = os.environ.get("BENCH_CONFIG")
     for name, prob in _problems(dtype).items():
         if only and name != only:
             continue
@@ -130,50 +126,16 @@ def main():
         x0 = jnp.asarray(prob.x0, dtype)[None] + scale * jax.random.uniform(
             key, (batch, nx), dtype, minval=-1.0, maxval=1.0
         )
-        stage = f"/tmp/bench_ipddp_fleet_{name}_{batch}_kernel.npz"
-        if engine != "perpass":
-            os.environ.pop("CDDP_TPU_NO_MEGA", None)
-            jax.clear_caches()
-            t_kernel, c_k, i_k, s_k = _bench(prob, x0, opts, reps)
-            if engine == "kernel":
-                np.savez(stage, t=t_kernel, c=c_k, i=i_k, s=s_k)
-                print(json.dumps({
-                    "metric": f"ipddp_{name}_solves_per_sec",
-                    "value": round(batch / t_kernel, 1),
-                    "unit": "solves/s", "staged": stage,
-                }))
-                continue
-        os.environ["CDDP_TPU_NO_MEGA"] = "1"
-        jax.clear_caches()
-        t_scan, c_s, i_s, s_s = _bench(prob, x0, opts, reps)
-        os.environ.pop("CDDP_TPU_NO_MEGA", None)
-        if engine == "perpass":
-            if not os.path.exists(stage):
-                print(json.dumps({
-                    "metric": f"ipddp_{name}_perpass_solves_per_sec",
-                    "value": round(batch / t_scan, 1), "unit": "solves/s",
-                }))
-                continue
-            d = np.load(stage)
-            t_kernel, c_k, i_k, s_k = float(d["t"]), d["c"], d["i"], d["s"]
-
-        rel = np.abs(c_k - c_s) / np.maximum(np.abs(c_s), 1e-9)
-        # In f32, equally-valid but differently-ordered programs can take
-        # different accept-margin branches on knife-edge instances (the
-        # documented driver-inherent tie sensitivity, test_mega_ipddp.py
-        # TestF32BranchSensitivity) — report the distribution, not just
-        # the outlier max.
+        dt, costs, iters, status = _bench(prob, x0, opts, reps)
         print(json.dumps({
             "metric": f"ipddp_{name}_solves_per_sec",
-            "value": round(batch / t_kernel, 1),
+            "value": round(batch / dt, 1),
             "unit": "solves/s",
-            "vs_baseline": round(t_scan / t_kernel, 3),  # speedup vs per-pass
-            "perpass_solves_per_sec": round(batch / t_scan, 1),
-            "parity_rel_cost_p50": float(np.percentile(rel, 50)),
-            "parity_rel_cost_p99": float(np.percentile(rel, 99)),
-            "parity_max_rel_cost": float(rel.max()),
-            "parity_iters_equal_frac": float((i_k == i_s).mean()),
-            "parity_status_equal_frac": float((s_k == s_s).mean()),
+            "batch": batch,
+            "device_kind": device["device_kind"],
+            "all_finite": bool(np.isfinite(costs).all()),
+            "mean_iterations": round(float(iters.mean()), 2),
+            "converged_frac": float(np.isin(status, (1, 2)).mean()),
         }))
 
 

@@ -1,7 +1,12 @@
-"""Secondary benchmark: vmap-batched MPCC fleet (BASELINE.json config 5 —
-'MPCC racing-line tracking MPC: receding-horizon warm-started IPDDP,
-vmap-batched 1k instances'). One cold-seeded IPDDP MPC tick for a fleet of
-cars distributed around a synthetic track. Prints one JSON line."""
+"""Secondary benchmark: vmap-batched MPCC fleet on one NVIDIA GPU. One
+cold-seeded IPDDP MPC tick for a fleet of cars distributed around a
+synthetic track (MPCC_MODE=cold, default), or the steady warm-started
+serving loop (MPCC_MODE=warm). Prints the device on stderr and one JSON
+line; exits non-zero without a GPU.
+
+    python bench_mpcc.py   # MPCC_BATCH (1024), MPCC_MODE, MPCC_WARM_ITERS,
+                           # MPCC_TRACK_EVAL (local), MPCC_LOCAL_COEFFS (64)
+"""
 
 import dataclasses
 import json
@@ -16,10 +21,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
 
 
 def main():
-    import mpcc_lib as mpcc
-
     import os
 
+    import mpcc_lib as mpcc
+    from cddp_tpu.utils import enable_compile_cache
+    from cddp_tpu.utils.profiling import gpu_device_info
+
+    device = gpu_device_info()
+    print(f"device: {json.dumps(device)}", file=sys.stderr)
+    print(f"compile cache: {enable_compile_cache()}", file=sys.stderr)
     B = int(os.environ.get("MPCC_BATCH", "1024"))
     track = mpcc.synthetic_track(n_points=240)
     cfg = mpcc.MpccConfig(
@@ -63,23 +73,11 @@ def main():
             "value": round(B / dt, 1),
             "unit": "ipddp_mpc_ticks/s",
             "fleet": B,
+            "device_kind": device["device_kind"],
             "warm_iterations": warm_iters,
             "mean_iterations": round(float(iters.mean()), 1),
         }))
         return
-
-    # Engine selection for the whole-solve-kernel A/B (VERDICT r4 item 2):
-    # BENCH_ENGINE=kernel stages its results to /tmp; BENCH_ENGINE=perpass
-    # runs with CDDP_TPU_NO_MEGA=1 and prints the comparison when the
-    # kernel leg's stage file exists (one engine per process keeps each
-    # run inside the ~10-min TPU compile window). Unset = current engine
-    # dispatch only (auto).
-    import numpy as np
-
-    engine = os.environ.get("BENCH_ENGINE")
-    stage = f"/tmp/bench_mpcc_{B}_kernel.npz"
-    if engine == "perpass":
-        os.environ["CDDP_TPU_NO_MEGA"] = "1"
 
     step = jax.jit(lambda xb: mpcc.batched_mpcc_step_costs(track, cfg, xb))
     u, cost, iters, status = step(x_batch)
@@ -90,56 +88,12 @@ def main():
         u, cost, iters, status = step(x_batch)
     jax.block_until_ready(cost)
     dt = (time.perf_counter() - t0) / reps
-
-    if engine == "kernel":
-        np.savez(stage, t=dt, c=np.asarray(cost), i=np.asarray(iters),
-                 s=np.asarray(status))
-        print(json.dumps({
-            "metric": "mpcc_fleet_ticks_per_sec",
-            "value": round(B / dt, 1),
-            "unit": "ipddp_mpc_ticks/s",
-            "fleet": B,
-            "mean_iterations": round(float(iters.mean()), 1),
-            "staged": stage,
-        }))
-        return
-    if engine == "perpass" and os.path.exists(stage):
-        d = np.load(stage)
-        t_k, c_k, i_k, s_k = float(d["t"]), d["c"], d["i"], d["s"]
-        c_s = np.asarray(cost)
-        # MPCC tick costs cross zero (the terminal progress bonus makes
-        # them negative), so relative error explodes on near-zero-cost
-        # instances; absolute deltas (cost units) are the honest tail
-        # metric alongside.
-        rel = np.abs(c_k - c_s) / np.maximum(np.abs(c_s), 1e-9)
-        absd = np.abs(c_k - c_s)
-        print(json.dumps({
-            "metric": "mpcc_fleet_ticks_per_sec",
-            "value": round(B / t_k, 1),
-            "unit": "ipddp_mpc_ticks/s",
-            "fleet": B,
-            "vs_perpass": round(dt / t_k, 3),
-            "perpass_ticks_per_sec": round(B / dt, 1),
-            "mean_iterations_kernel": round(float(i_k.mean()), 1),
-            "mean_iterations_perpass": round(float(iters.mean()), 1),
-            "parity_rel_cost_p50": float(np.percentile(rel, 50)),
-            "parity_rel_cost_p99": float(np.percentile(rel, 99)),
-            "parity_max_rel_cost": float(rel.max()),
-            "parity_abs_cost_p50": float(np.percentile(absd, 50)),
-            "parity_abs_cost_p99": float(np.percentile(absd, 99)),
-            "parity_abs_cost_max": float(absd.max()),
-            "parity_iters_equal_frac": float((i_k == np.asarray(iters)).mean()),
-            "parity_status_equal_frac": float(
-                (s_k == np.asarray(status)).mean()
-            ),
-        }))
-        return
     print(json.dumps({
         "metric": "mpcc_fleet_ticks_per_sec",
         "value": round(B / dt, 1),
         "unit": "ipddp_mpc_ticks/s",
         "fleet": B,
-        "engine": engine or "auto",
+        "device_kind": device["device_kind"],
         "mean_iterations": round(float(iters.mean()), 1),
     }))
 

@@ -1,18 +1,14 @@
-"""MSIPDDP fleet A/B (VERDICT r4 item 5): the multiple-shooting
-interior-point solver vmap-batched over a fleet — whole-solve Pallas
-kernel (ops/pallas/mega_msipddp.py) vs the per-pass engines
-(CDDP_TPU_NO_MEGA), with parity stats on the SAME batch, plus the IPDDP
-whole-solve number on the same problem for context. Prints one JSON line
-per configuration.
+"""MSIPDDP fleet on one NVIDIA GPU: the multiple-shooting interior-point
+solver (segment length 5) vmap-batched over the control-limited unicycle
+fleet through ``batched_solve``. Prints the device on stderr and one JSON
+line; exits non-zero without a GPU.
 
-Round-4 record (per-pass only, pre-kernel): 13,408 solves/s at B=1024 vs
-112,803 for IPDDP on the same problem.
-
-Run on the TPU: timeout 1700 python bench_msipddp_fleet.py
+    python bench_msipddp_fleet.py   # BENCH_BATCH (1024), BENCH_REPS (5)
 """
 
 import json
 import os
+import sys
 import time
 
 import jax
@@ -59,7 +55,12 @@ def _bench(prob, x0, solver, opts, reps):
 
 def main():
     import cddp_tpu as ct
+    from cddp_tpu.utils import enable_compile_cache
+    from cddp_tpu.utils.profiling import gpu_device_info
 
+    device = gpu_device_info()
+    print(f"device: {json.dumps(device)}", file=sys.stderr)
+    print(f"compile cache: {enable_compile_cache()}", file=sys.stderr)
     dtype = jnp.float32
     B = int(os.environ.get("BENCH_BATCH", "1024"))
     reps = int(os.environ.get("BENCH_REPS", "5"))
@@ -70,51 +71,16 @@ def main():
         max_iterations=10, tolerance=1e-4,
         msipddp=ct.MSIPDDPOptions(segment_length=5),
     )
-
-    # One ENGINE per process fits the TPU compile window (BENCH_ENGINE=
-    # kernel|perpass stages/compares like bench_ipddp_fleet.py); unset =
-    # both in-process.
-    engine = os.environ.get("BENCH_ENGINE")
-    stage = f"/tmp/bench_msipddp_fleet_{B}_kernel.npz"
-    if engine != "perpass":
-        os.environ.pop("CDDP_TPU_NO_MEGA", None)
-        jax.clear_caches()
-        t_k, c_k, i_k, s_k = _bench(prob, x0, "MSIPDDP", opts, reps)
-        if engine == "kernel":
-            np.savez(stage, t=t_k, c=c_k, i=i_k, s=s_k)
-            print(json.dumps({
-                "metric": "msipddp_fleet_solves_per_sec",
-                "value": round(B / t_k, 1), "unit": "solves/s",
-                "staged": stage,
-            }))
-            return
-    os.environ["CDDP_TPU_NO_MEGA"] = "1"
-    jax.clear_caches()
-    t_s, c_s, i_s, s_s = _bench(prob, x0, "MSIPDDP", opts, reps)
-    os.environ.pop("CDDP_TPU_NO_MEGA", None)
-    if engine == "perpass":
-        if not os.path.exists(stage):
-            print(json.dumps({
-                "metric": "msipddp_fleet_perpass_solves_per_sec",
-                "value": round(B / t_s, 1), "unit": "solves/s",
-            }))
-            return
-        d = np.load(stage)
-        t_k, c_k, i_k, s_k = float(d["t"]), d["c"], d["i"], d["s"]
-
-    rel = np.abs(c_k - c_s) / np.maximum(np.abs(c_s), 1e-9)
+    dt, costs, iters, status = _bench(prob, x0, "MSIPDDP", opts, reps)
     print(json.dumps({
         "metric": "msipddp_fleet_solves_per_sec",
-        "value": round(B / t_k, 1),
+        "value": round(B / dt, 1),
         "unit": "solves/s",
-        "vs_baseline": round(t_s / t_k, 3),
-        "perpass_solves_per_sec": round(B / t_s, 1),
-        "parity_rel_cost_p50": float(np.percentile(rel, 50)),
-        "parity_rel_cost_p99": float(np.percentile(rel, 99)),
-        "parity_max_rel_cost": float(rel.max()),
-        "parity_iters_equal_frac": float((i_k == i_s).mean()),
-        "parity_status_equal_frac": float((s_k == s_s).mean()),
-        "mean_iterations": round(float(np.asarray(i_k).mean()), 1),
+        "batch": B,
+        "device_kind": device["device_kind"],
+        "all_finite": bool(np.isfinite(costs).all()),
+        "mean_iterations": round(float(iters.mean()), 2),
+        "converged_frac": float(np.isin(status, (1, 2)).mean()),
     }))
 
 

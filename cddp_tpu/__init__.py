@@ -1,4 +1,4 @@
-"""cddp_tpu — TPU-native trajectory optimization (DDP family).
+"""cddp_tpu — JAX trajectory optimization (DDP family).
 
 A ground-up JAX/XLA rebuild of the capabilities of the reference C++ library
 ``astomodynamics/cddp-cpp``: CLDDP / LogDDP / IPDDP / MSIPDDP solvers over a

@@ -18,7 +18,7 @@ from typing import Callable, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cddp_tpu.utils import struct
 
 
 class Objective(struct.PyTreeNode):

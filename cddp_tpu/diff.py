@@ -5,7 +5,7 @@ pytree (dynamics params, cost matrices, goal, x0, constraint parameters are
 all leaves), the solution map ``problem -> (X*, U*)`` can be differentiated
 with respect to ANY problem parameter. This enables inverse optimal control
 (fit cost weights / goals to demonstrations), learned-dynamics MPC training,
-and end-to-end control-aware perception — all running on TPU.
+and end-to-end control-aware perception — all on the accelerator.
 
 The gradient is computed by the implicit-function theorem at the converged
 solution (Amos & Kolter, "Differentiable MPC for End-to-end Planning and

@@ -1,6 +1,6 @@
 """Dynamical-system protocol.
 
-TPU-native rebuild of the reference ``DynamicalSystem`` base
+JAX rebuild of the reference ``DynamicalSystem`` base
 (``include/cddp-cpp/cddp_core/dynamical_system.hpp:33-152``,
 ``src/cddp_core/dynamical_system.cpp``): a model is a frozen pytree of
 physical parameters plus pure functions. Derivatives default to JAX autodiff
@@ -19,7 +19,7 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cddp_tpu.utils import struct
 
 from cddp_tpu.ops.integrators import integrate
 
@@ -93,18 +93,8 @@ class DynamicalSystem(struct.PyTreeNode):
 def rollout(model: DynamicalSystem, x0: jax.Array, U: jax.Array, dt) -> jax.Array:
     """Open-loop rollout: X[t+1] = f_d(X[t], U[t], t*dt). Returns (N+1, nx).
 
-    lax.scan over the horizon — the TPU replacement for the reference's
-    per-step rollout loops (e.g. ipddp_solver.cpp:868-874). Lane-registered
-    models dispatch through a batch-aware op (ops/pallas/ip_rollout.py):
-    unbatched it is this same scan over identical lane math; under TPU f32
-    fleet vmaps the whole rollout runs as one Pallas kernel (an N-step scan
-    of tiny ops costs ~170 us/step of per-op overhead at fleet shapes)."""
-    from cddp_tpu.ops.pallas.ip_rollout import open_loop_rollout_op
-
-    fused = open_loop_rollout_op(model, x0, U, dt)
-    if fused is not None:
-        return fused
-
+    lax.scan over the horizon (the reference's per-step rollout loops, e.g.
+    ipddp_solver.cpp:868-874)."""
     N = U.shape[0]
     ts = jnp.arange(N, dtype=x0.dtype) * dt
 

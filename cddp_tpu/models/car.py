@@ -17,7 +17,7 @@ A = I + dt*Fx reconstruction is exact. The model carries its own timestep
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from cddp_tpu.utils import struct
 
 from cddp_tpu.models.base import DynamicalSystem
 

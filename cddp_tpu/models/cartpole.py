@@ -9,7 +9,7 @@ unlike the plain path — includes pole damping; we implement that damped form
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from cddp_tpu.utils import struct
 
 from cddp_tpu.models.base import DynamicalSystem
 

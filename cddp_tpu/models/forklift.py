@@ -9,7 +9,7 @@ euler integrator, giving the identical discrete dynamics).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from cddp_tpu.utils import struct
 
 from cddp_tpu.models.base import DynamicalSystem
 

@@ -12,7 +12,7 @@ kinematics (PUMA-like DH chain, manipulator.cpp:120-172) are exposed as
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from cddp_tpu.utils import struct
 
 from cddp_tpu.models.base import DynamicalSystem
 

@@ -13,7 +13,7 @@ implement the + sign and let AD make every derivative consistent with it.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from cddp_tpu.utils import struct
 
 from cddp_tpu.models.base import DynamicalSystem
 

@@ -7,7 +7,7 @@ Rebuild of ``src/dynamics_model/quadrotor_rate.cpp``.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from cddp_tpu.utils import struct
 
 from cddp_tpu.models.base import DynamicalSystem
 from cddp_tpu.utils.rotations import quat_to_rotation_matrix

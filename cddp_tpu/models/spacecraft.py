@@ -17,7 +17,7 @@ landing2d,twobody}.cpp``:
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from cddp_tpu.utils import struct
 
 from cddp_tpu.models.base import DynamicalSystem
 

@@ -6,7 +6,7 @@ Rebuild of ``src/dynamics_model/unicycle.cpp:28-67``.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from cddp_tpu.utils import struct
 
 from cddp_tpu.models.base import DynamicalSystem
 

@@ -8,7 +8,7 @@ USV parameters (:16-55) precomputed into M^-1 and D_L.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from cddp_tpu.utils import struct
 
 from cddp_tpu.models.base import DynamicalSystem
 

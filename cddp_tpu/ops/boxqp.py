@@ -1,6 +1,6 @@
 """Box-constrained QP: min 0.5 x'Hx + g'x  s.t.  lower <= x <= upper.
 
-TPU-native rebuild of the projected-Newton active-set solver in
+JAX rebuild of the projected-Newton active-set solver in
 ``src/cddp_core/boxqp.cpp`` (Tassa-style BoxQP). The reference extracts the
 free-variable sub-block and LDLT-factorizes it whenever the clamped set
 changes (boxqp.cpp:89-111). Dynamic sub-block shapes don't exist under XLA,
@@ -14,8 +14,8 @@ clamped rows, and is PD iff the true free block is PD. Everything is a
 Riccati ``lax.scan`` and under ``vmap`` (batched MPC / multi-alpha search).
 
 Control dims here are tiny (nu <= 4 in the model zoo), so the Cholesky is a
-handful of VPU ops; the win comes from batching thousands of these via vmap,
-not from the MXU.
+handful of elementwise ops; the win comes from batching thousands of these
+via vmap, not from matrix-unit throughput.
 """
 
 from __future__ import annotations
@@ -89,7 +89,7 @@ def boxqp_solve_enum(
     x0: jax.Array = None,
     options: BoxQPOptions = BoxQPOptions(),
 ) -> BoxQPResult:
-    """Exact BoxQP by active-set enumeration — the TPU-native fast path.
+    """Exact BoxQP by active-set enumeration — the default at small n.
 
     For a strictly convex box QP in n variables there are 3^n candidate
     active sets (each coordinate free / at lower / at upper); exactly one
@@ -98,7 +98,7 @@ def boxqp_solve_enum(
     sequential depth, no data-dependent loops, so it nests inside
     ``lax.scan``/``vmap`` without the convergence-tolerance pathologies of
     iterative solvers in float32. Control dims in the model zoo are <= 4
-    (3^4 = 81 candidates), so this is a handful of fused VPU ops.
+    (3^4 = 81 candidates), so this is a handful of fused elementwise ops.
 
     Returns the same BoxQPResult as :func:`boxqp_solve` (the reference
     projected-Newton, boxqp.cpp:25-182, converges to this same unique
@@ -184,7 +184,7 @@ def boxqp(
     H, g, lower, upper, x0, options: BoxQPOptions = BoxQPOptions()
 ) -> BoxQPResult:
     """Dispatch by ``options.method`` ("auto"/"enum"/"newton"); see
-    :func:`boxqp_solve_enum` for why enum is the TPU default at small n."""
+    :func:`boxqp_solve_enum` for why enum is the default at small n."""
     n = H.shape[0]
     if options.method == "enum" or (
         options.method == "auto" and n <= options.enum_max_dim

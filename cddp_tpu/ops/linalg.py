@@ -1,17 +1,16 @@
 """Small-matrix linear algebra, fusion-friendly.
 
-On TPU (and especially through remote-execution backends) each XLA custom
-call — cholesky, triangular_solve — is a separate kernel with fixed launch
-overhead, and it breaks elementwise fusion. The DDP hot loops solve nothing
-bigger than Q_uu (nu <= 4 across the model zoo) thousands of times inside
-``lax.scan``, so library decompositions cost ~100x their arithmetic.
+On an accelerator each XLA custom call — cholesky, triangular_solve — is a
+separate kernel with fixed launch overhead, and it breaks elementwise
+fusion. The DDP hot loops solve nothing bigger than Q_uu (nu <= 4 across
+the model zoo) thousands of times inside ``lax.scan``, so library
+decompositions cost far more than their arithmetic.
 
 This module provides closed-form (cofactor/adjugate) determinants, solves
 and PD checks for static n <= 4, which XLA fuses straight into the
-surrounding scan body, with cholesky fallbacks for larger n. Profiling on
-v5e (see bench history): replacing cho_solve with these in the backward scan
-collapses the per-step kernel count and is the difference between ~800 and
-multi-thousand solves/sec for batched MPC.
+surrounding scan body, with cholesky fallbacks for larger n: replacing
+cho_solve with these in the backward scan collapses the per-step kernel
+count.
 
 PD checks use Sylvester's criterion (all leading principal minors > 0) —
 equivalent to Cholesky success for symmetric matrices, i.e. the same

@@ -1,46 +1,27 @@
-"""Pallas-fused CLDDP forward pass (closed-loop rollout + cost).
+"""Lane functions: per-instance math over lists of lane vectors.
 
-The profiled anatomy of the batched CLDDP iteration at B=16384 (bench.py
-workload) after the fused backward landed: backward+derivatives ~4.4 ms,
-forward line-search rollout ~4.5 ms — the rollout's ``lax.scan`` lowers to
-~20 ops per timestep, each paying fixed per-op overhead (~11 us at this
-shape; the HBM traffic itself is ~30 us total). This kernel runs the WHOLE
-closed-loop rollout — feedback law, control clamp, running cost, dynamics
-integration — inside one ``pallas_call`` with the batch axis on the vector
-lanes, mirroring the layout of :mod:`cddp_tpu.ops.pallas.riccati` (grid
-(batch_tile, time), per-state lane vectors, VMEM carry).
+A lane vector holds one scalar of every solver instance in a tile of the
+batch, so small-matrix algebra is unrolled at trace time over the static
+(nx, nu) indices and every entry is an elementwise operation across
+instances. The whole-solve kernel (:mod:`cddp_tpu.ops.pallas.mega_clddp`)
+is written entirely in this form.
 
-Model dynamics run inside the kernel through a small *lane-function
-registry*: a model class maps to a function over per-state lane vectors
-(``x_list, u_list, param_list -> xdot_list``) — the TPU-kernel analogue of
-the native engine's C++ model registry. Model parameters and the timestep
-enter as lane inputs (they are traced pytree leaves, not static). Models
-without a lane function (or non-quadratic objectives, or reference
-trajectories) keep the reference-parity ``lax.scan`` forward; dispatch
-happens in :mod:`cddp_tpu.solvers.clddp` under the same
-``backward_engine="auto"`` rules as the backward kernel.
-
-Parity with the scan forward is asserted in tests (1e-9, f64, interpreter
-mode; clddp_solver.cpp:217-262 is the semantics being fused).
+- Model registry: a model class maps to ``(n_params, param_vector(model),
+  f(x, u, p) -> xdot)`` over lane vectors, mirroring the
+  ``models/*.py`` dynamics (which cite the reference
+  ``src/dynamics_model/*.cpp`` lines). Model parameters and the timestep
+  enter as lane inputs; they are traced pytree leaves, not static.
+- :func:`_integrate_lane`: one explicit integrator step
+  (``ops/integrators.py`` semantics).
+- :func:`clddp_backward_step_lanes`: one control-limited Riccati step with
+  the exact 3^nu enumeration BoxQP (clddp_solver.cpp:96-203).
 """
 
 from __future__ import annotations
 
-import functools
+from itertools import permutations
 
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from cddp_tpu.ops.pallas.batched_dispatch import make_batched_op
-
-DEFAULT_TILE_B = 1024
-# Smallest vmap axis size the fused kernel engages for; below this the
-# tile_b padding waste outweighs the lane parallelism and the vmapped scan
-# is used instead (see _rule in _forward_op).
-MIN_KERNEL_BATCH = 128
-
 
 # --- lane-function model registry ------------------------------------------
 # Each entry: (n_params, param_vector(model) -> (n_params,), f(x, u, p)).
@@ -180,20 +161,6 @@ def _hcw_f(x, u, p):
             -n * n * pz + u[2] / mass]
 
 
-def _car_discrete_f(x, u, p, dt):
-    # Tassa's exact car map (models/car.py discrete_dynamics) — a DISCRETE
-    # lane function (4th registry slot True): no integrator composition.
-    d = p[0]
-    theta, v = x[2], x[3]
-    delta, a = u[0], u[1]
-    f = dt * v
-    sd = jnp.sin(delta)
-    b = d + f * jnp.cos(delta) - jnp.sqrt(d * d - (f * sd) * (f * sd))
-    dtheta = jnp.arcsin(sd * f / d)
-    return [x[0] + b * jnp.cos(theta), x[1] + b * jnp.sin(theta),
-            x[2] + dtheta, x[3] + dt * a]
-
-
 _REGISTRY["HCW"] = (
     2,
     lambda mdl: jnp.stack(
@@ -201,19 +168,12 @@ _REGISTRY["HCW"] = (
     ),
     _hcw_f,
 )
-_REGISTRY["Car"] = (
-    1,
-    lambda mdl: jnp.stack([jnp.asarray(mdl.wheelbase)]),
-    _car_discrete_f,
-    True,  # discrete lane map
-)
-
 
 # --- full-zoo lane functions -------------------------------------------------
 # Every remaining fixed-dimension zoo model (all but the variable-shape
 # LTISystem). Matrix solves are unrolled to closed-form 2x2/3x3 adjugate
-# algebra (lane vectors have no linalg); tan lowers to sin/cos (supported on
-# all Mosaic targets). Each mirrors the corresponding models/*.py dynamics,
+# algebra (lane vectors have no linalg); tan is written as sin/cos. Each
+# mirrors the corresponding models/*.py dynamics,
 # which in turn cite the reference src/dynamics_model/*.cpp lines.
 
 
@@ -567,14 +527,10 @@ def _registry_key(model):
 
 
 def lane_spec(model):
-    """(n_params, param_vector_fn, lane_fn[, discrete]) for a registered
-    model, else None."""
+    """(n_params, param_vector_fn, lane_fn) for a registered model, else
+    None."""
     key = _registry_key(model)
     return _REGISTRY[key] if key is not None else None
-
-
-def _is_discrete(entry):
-    return len(entry) > 3 and entry[3]
 
 
 def _integrate_lane(f, kind, x, u, p, dt):
@@ -613,383 +569,191 @@ def _integrate_lane(f, kind, x, u, p, dt):
     raise ValueError(f"unknown integrator {kind!r}")
 
 
-def make_forward_kernel(nx: int, nu: int, N: int, n_params: int, lane_f,
-                        integrator: str, clamp: bool, discrete: bool = False,
-                        tracking: bool = False,
-                        tile_b: int = DEFAULT_TILE_B):
-    """Build the fused forward-pass pallas_call for static problem structure.
+# --- unrolled small-matrix algebra over lists of lane vectors --------------
 
-    Inputs (batch-last, lane-folded): Xb (N,nx,B), Ub (N,nu,B), k (N,nu,B),
-    K (N,nu,nx,B), x0 (nx,B), alpha (1,B), dt (1,B),
-    params (max(n_params,1),B), Qg (nx,nx,B) [dt-scaled Q], Rg (nu,nu,B),
-    Qfg (nx,nx,B), goal (nx,B), lb (nu,B), ub (nu,B).
 
-    Outputs: X tail (N,nx,B) [x_1..x_N], U_new (N,nu,B), J (1,B).
+def _matmul(A, B, n, k, m):
+    """(n,k) @ (k,m), entries are vectors."""
+    return [
+        [sum(A[i][l] * B[l][j] for l in range(k)) for j in range(m)]
+        for i in range(n)
+    ]
+
+
+def _matvec(A, x, n, k):
+    return [sum(A[i][l] * x[l] for l in range(k)) for i in range(n)]
+
+
+def _transpose(A, n, m):
+    return [[A[i][j] for i in range(n)] for j in range(m)]
+
+
+def _det(A, idx_r, idx_c):
+    n = len(idx_r)
+    if n == 0:
+        return 1.0
+    total = None
+    for perm in permutations(range(n)):
+        inv = sum(
+            1 for a in range(n) for b in range(a + 1, n) if perm[a] > perm[b]
+        )
+        term = A[idx_r[0]][idx_c[perm[0]]]
+        for a in range(1, n):
+            term = term * A[idx_r[a]][idx_c[perm[a]]]
+        total = (total - term) if (total is not None and inv % 2) else (
+            (total + term) if total is not None else (-term if inv % 2 else term)
+        )
+    return total
+
+
+def _inv(A, n):
+    """Adjugate inverse of an (n, n) list-matrix of vectors."""
+    det = _det(A, tuple(range(n)), tuple(range(n)))
+    inv_det = 1.0 / det
+    rows = list(range(n))
+    out = [[None] * n for _ in range(n)]
+    for j in range(n):
+        for i in range(n):
+            rs = tuple(r for r in rows if r != i)
+            cs = tuple(c for c in rows if c != j)
+            sign = (-1.0) ** (i + j)
+            out[j][i] = sign * _det(A, rs, cs) * inv_det
+    return out, det
+
+
+def _leading_minors_pd(A, n):
+    ok = A[0][0] > 0
+    for k in range(2, n + 1):
+        ok = ok & (_det(A, tuple(range(k)), tuple(range(k))) > 0)
+    return ok
+
+
+def clddp_backward_step_lanes(A, Bm, lx, lu, lxx, luu, lux, lb, ub, Vx, Vxx,
+                              reg, zeros, nx, nu, configs):
+    """One control-limited Riccati step over lists of lane vectors.
+
+    The Q-expansion + exact 3^nu enum BoxQP + masked-free feedback + value
+    update of clddp_solver.cpp:96-203, as run by the whole-solve kernel
+    (ops/pallas/mega_clddp.py).
+
+    Returns ``(k_sel, K_t, Vx_new, Vxx_new, dv0, dv1, fail, qu_absmax)``
+    where ``fail`` is a boolean lane mask and ``qu_absmax = max_i |Qu_i|``.
     """
-    n_carry = nx + 1  # x, J
+    At = _transpose(A, nx, nx)
+    Bt = _transpose(Bm, nx, nu)
 
-    def kernel(Xb_ref, Ub_ref, k_ref, K_ref, x0_ref, alpha_ref, dt_ref,
-               p_ref, Q_ref, R_ref, Qf_ref, goal_ref, *rest):
-        if tracking:
-            (refs_ref, lb_ref, ub_ref,
-             Xo_ref, Uo_ref, J_ref, carry_ref) = rest
-        else:
-            refs_ref = None
-            (lb_ref, ub_ref, Xo_ref, Uo_ref, J_ref, carry_ref) = rest
-        tt = pl.program_id(1)
-        alpha = alpha_ref[0]
-        dt = dt_ref[0]
-        p = [p_ref[i] for i in range(n_params)]
+    Qx = [lx[i] + v for i, v in enumerate(_matvec(At, Vx, nx, nx))]
+    Qu = [lu[i] + v for i, v in enumerate(_matvec(Bt, Vx, nu, nx))]
+    VA = _matmul(Vxx, A, nx, nx, nx)
+    Qxx = [[lxx[i][j] + v for j, v in enumerate(row)]
+           for i, row in enumerate(_matmul(At, VA, nx, nx, nx))]
+    Qux = [[lux[i][j] + v for j, v in enumerate(row)]
+           for i, row in enumerate(_matmul(Bt, VA, nu, nx, nx))]
+    VB = _matmul(Vxx, Bm, nx, nx, nu)
+    Quu = [[luu[i][j] + v for j, v in enumerate(row)]
+           for i, row in enumerate(_matmul(Bt, VB, nu, nx, nu))]
 
-        @pl.when(tt == 0)
-        def _init():
-            for i in range(nx):
-                carry_ref[i] = x0_ref[i]
-            carry_ref[nx] = jnp.zeros_like(alpha)
+    Quu_reg = [[Quu[i][j] + (reg if i == j else zeros)
+                for j in range(nu)] for i in range(nu)]
 
-        x = [carry_ref[i] for i in range(nx)]
-        J = carry_ref[nx]
-        goal = [goal_ref[i] for i in range(nx)]
+    # --- exact enum BoxQP (boxqp_solve_enum, unrolled) -------------
+    pd_all = _leading_minors_pd(Quu_reg, nu)
+    k_sel = [zeros] * nu
+    Hinv_free_sel = [[zeros] * nu for _ in range(nu)]
+    taken = zeros > 1.0  # all-false
 
-        # u = clamp(Ub + alpha*k + K (x - Xb))
-        dx = [x[i] - Xb_ref[0, i] for i in range(nx)]
-        u = []
-        for i in range(nu):
-            ui = Ub_ref[0, i] + alpha * k_ref[0, i]
-            for j in range(nx):
-                ui = ui + K_ref[0, i, j] * dx[j]
-            if clamp:
-                ui = jnp.minimum(jnp.maximum(ui, lb_ref[i]), ub_ref[i])
-            u.append(ui)
-
-        # running cost: e'Q e + u'R u (QuadraticObjective, dt-prescaled);
-        # with reference_states the error tracks the per-step reference row
-        # (a stage input); otherwise the goal (no extra HBM traffic on the
-        # goal path — the headline bench workload).
-        if tracking:
-            e = [x[i] - refs_ref[0, i] for i in range(nx)]
-        else:
-            e = [x[i] - goal[i] for i in range(nx)]
-        for i in range(nx):
-            for j in range(nx):
-                J = J + e[i] * Q_ref[i, j] * e[j]
-        for i in range(nu):
-            for j in range(nu):
-                J = J + u[i] * R_ref[i, j] * u[j]
-
-        if discrete:
-            x_next = lane_f(x, u, p, dt)
-        else:
-            x_next = _integrate_lane(lane_f, integrator, x, u, p, dt)
-
-        for i in range(nx):
-            Xo_ref[0, i] = x_next[i]
-            carry_ref[i] = x_next[i]
-        for i in range(nu):
-            Uo_ref[0, i] = u[i]
-
-        # terminal cost folded in on the last step
-        @pl.when(tt == N - 1)
-        def _final():
-            Jf = J
-            for i in range(nx):
-                for j in range(nx):
-                    Jf = Jf + (x_next[i] - goal[i]) * Qf_ref[i, j] * (
-                        x_next[j] - goal[j]
-                    )
-            J_ref[0] = Jf
-            carry_ref[nx] = Jf
-
-        @pl.when(tt != N - 1)
-        def _not_final():
-            carry_ref[nx] = J
-
-    assert tile_b % 1024 == 0, tile_b
-    tbs = tile_b // 128
-    np_eff = max(n_params, 1)
-
-    def call(Xb, Ub, k, K, x0, alpha, dtv, params, Q, R, Qf, goal, refs,
-             lb, ub, interpret=False):
-        # refs is None (and unused) when not tracking.
-        Btot = Xb.shape[-1]
-        assert Btot % tile_b == 0, (Btot, tile_b)
-        grid = (Btot // tile_b, N)
-        dtype = Xb.dtype
-        rows = Btot // 128
-
-        def fold(x):
-            return x.reshape(*x.shape[:-1], rows, 128)
-
-        def stage_spec(*dims):
-            blk = (1,) + tuple(dims) + (tbs, 128)
-            nd = len(dims)
-            return pl.BlockSpec(
-                blk,
-                lambda b, t, _nd=nd: (t,) + (0,) * _nd + (b, 0),
-                memory_space=pltpu.VMEM,
-            )
-
-        def const_spec(*dims):
-            blk = tuple(dims) + (tbs, 128)
-            nd = len(dims)
-            return pl.BlockSpec(
-                blk, lambda b, t, _nd=nd: (0,) * _nd + (b, 0),
-                memory_space=pltpu.VMEM,
-            )
-
-        in_specs = [
-            stage_spec(nx), stage_spec(nu), stage_spec(nu),
-            stage_spec(nu, nx), const_spec(nx), const_spec(1),
-            const_spec(1), const_spec(np_eff),
-            const_spec(nx, nx), const_spec(nu, nu), const_spec(nx, nx),
-            const_spec(nx),
-        ] + ([stage_spec(nx)] if tracking else []) + [
-            const_spec(nu), const_spec(nu),
+    for cfg in configs:
+        free_idx = [i for i in range(nu) if cfg[i] == 0]
+        x_cfg = [
+            zeros if cfg[i] == 0 else (lb[i] if cfg[i] == 1 else ub[i])
+            for i in range(nu)
         ]
-        out_specs = (stage_spec(nx), stage_spec(nu), const_spec(1))
-        out_shape = (
-            jax.ShapeDtypeStruct((N, nx, rows, 128), dtype),
-            jax.ShapeDtypeStruct((N, nu, rows, 128), dtype),
-            jax.ShapeDtypeStruct((1, rows, 128), dtype),
-        )
-        ins = (Xb, Ub, k, K, x0, alpha, dtv, params, Q, R, Qf, goal)
-        if tracking:
-            ins = ins + (refs,)
-        args = [fold(v) for v in ins + (lb, ub)]
-        outs = pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=in_specs,
-            out_specs=out_specs,
-            out_shape=out_shape,
-            scratch_shapes=[pltpu.VMEM((n_carry, tbs, 128), dtype)],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=(pltpu.PARALLEL, pltpu.ARBITRARY)
-            ),
-            interpret=interpret,
-        )(*args)
-        return tuple(o.reshape(*o.shape[:-2], Btot) for o in outs)
-
-    return call
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("kind", "integrator", "clamp", "tile_b", "interpret"),
-)
-def _forward_fused_impl(Xb, Ub, k, K, x0, alpha, dtv, params, Q, R, Qf, goal,
-                        refs, lb, ub, kind, integrator, clamp, tile_b,
-                        interpret):
-    entry = _REGISTRY[kind]
-    n_params, lane_f = entry[0], entry[2]
-    discrete = _is_discrete(entry)
-    tracking = refs is not None
-    B0, N = Xb.shape[0], Xb.shape[1]
-    nx, nu = Xb.shape[2], Ub.shape[2]
-    pad = (-B0) % tile_b
-
-    def prep(x):
-        if pad:
-            x = jnp.concatenate([x, jnp.repeat(x[-1:], pad, 0)], 0)
-        return jnp.moveaxis(x, 0, -1)
-
-    ins = [Xb, Ub, k, K, x0, alpha[:, None], dtv[:, None],
-           params, Q, R, Qf, goal]
-    ins.append(refs if tracking else None)
-    ins += [lb, ub]
-    args = [prep(v) if v is not None else None for v in ins]
-    call = make_forward_kernel(nx, nu, N, n_params, lane_f, integrator,
-                               clamp, discrete, tracking, tile_b)
-    Xt, U, J = call(*args, interpret=interpret)
-    unprep = lambda x: jnp.moveaxis(x, -1, 0)[:B0]
-    return unprep(Xt), unprep(U), unprep(J)[:, 0]
-
-
-def forward_rollout_fused(problem, cc, Xb, Ub, k, K, alpha,
-                          tile_b: int = DEFAULT_TILE_B,
-                          interpret: bool = False):
-    """Batched fused closed-loop rollout.
-
-    Batch-first inputs: Xb (B,N+1,nx) nominal states, Ub (B,N,nu), gains
-    k (B,N,nu) / K (B,N,nu,nx), alpha (B,). Each batch element rolls from
-    its own Xb[:, 0] (CLDDP keeps X[0] = x0).
-
-    Returns (X_new (B,N+1,nx), U_new (B,N,nu), J (B,)).
-    """
-    B = Xb.shape[0]
-    obj = problem.objective
-    dtype = Xb.dtype
-
-    def bc(a):
-        a = jnp.asarray(a, dtype)
-        return jnp.broadcast_to(a, (B,) + a.shape)
-
-    Q = bc(obj.Q)
-    R = bc(obj.R)
-    Qf = bc(obj.Qf)
-    goal = bc(obj.reference_state)
-    if obj.reference_states is not None:
-        # Accept (N, nx) or (N+1, nx) reference trajectories (the generic
-        # path only ever indexes rows 0..N-1; the terminal row is Qf's job).
-        refs = bc(jnp.asarray(obj.reference_states)[: Ub.shape[1]])
-    else:
-        refs = None
-    nu = Ub.shape[2]
-    if cc is not None:
-        lb = bc(jnp.asarray(cc.lower, dtype))
-        ub = bc(jnp.asarray(cc.upper, dtype))
-        clamp = True
-    else:
-        lb = jnp.zeros((B, nu), dtype)
-        ub = jnp.zeros((B, nu), dtype)
-        clamp = False
-
-    model = problem.model
-    kind = _registry_key(model)
-    entry = _REGISTRY[kind]
-    n_params, param_fn = entry[0], entry[1]
-    params = bc(jnp.asarray(param_fn(model), dtype))
-    if n_params == 0:  # keep the lane shape >= 1
-        params = jnp.zeros((B, 1), dtype)
-
-    dtv = jnp.broadcast_to(jnp.asarray(problem.timestep, dtype), (B,))
-    x0 = Xb[:, 0]
-    Xt, U_new, J = _forward_fused_impl(
-        Xb[:, :-1], Ub, k, K, x0, jnp.asarray(alpha, dtype), dtv, params, Q,
-        R, Qf, goal, refs, lb, ub, kind, model.integration_type, clamp,
-        tile_b, interpret,
-    )
-    X_new = jnp.concatenate([x0[:, None, :], Xt], axis=1)
-    return X_new, U_new, J
-
-
-# ---------------------------------------------------------------------------
-# custom_vmap op: scan for single instances, fused kernel for batches
-# ---------------------------------------------------------------------------
-
-
-def _scan_forward_single(kind, integrator, clamp, tracking, Xb, Ub, k, K,
-                         alpha, dtv, params, Q, R, Qf, goal, *rest):
-    """Single-instance reference path (identical math to the kernel):
-    closed-loop rollout + quadratic cost as a lax.scan. The non-tracking
-    variant closes over ``goal`` directly (no per-step reference traffic)."""
-    if tracking:
-        refs, lb, ub = rest
-    else:
-        (lb, ub) = rest
-    entry = _REGISTRY[kind]
-    n_params, lane_f = entry[0], entry[2]
-    discrete = _is_discrete(entry)
-    N, nx = Xb.shape[0], Xb.shape[1]
-    nu = Ub.shape[1]
-
-    def step(carry, inp):
-        x, J = carry
-        if tracking:
-            Xb_t, Ub_t, k_t, K_t, ref_t = inp
+        if free_idx:
+            # Solve free block: Hff xf = -(Qu_f + H_fc x_c)
+            Hff = [[Quu_reg[a][b] for b in free_idx] for a in free_idx]
+            rhs = [
+                -(Qu[a] + sum(Quu_reg[a][b] * x_cfg[b]
+                              for b in range(nu) if cfg[b] != 0))
+                for a in free_idx
+            ]
+            nf = len(free_idx)
+            Hinv, det = _inv(Hff, nf)
+            pd = _leading_minors_pd(Hff, nf)
+            xf = _matvec(Hinv, rhs, nf, nf)
+            x_full = list(x_cfg)
+            for a, fi in enumerate(free_idx):
+                x_full[fi] = xf[a]
         else:
-            Xb_t, Ub_t, k_t, K_t = inp
-            ref_t = goal
-        u = Ub_t + alpha * k_t + K_t @ (x - Xb_t)
-        if clamp:
-            u = jnp.clip(u, lb, ub)
-        e = x - ref_t
-        J = J + e @ Q @ e + u @ R @ u
-        xs = [x[i] for i in range(nx)]
-        us = [u[i] for i in range(nu)]
-        ps = [params[i] for i in range(n_params)]
-        if discrete:
-            x_next = jnp.stack(lane_f(xs, us, ps, dtv))
-        else:
-            x_next = jnp.stack(
-                _integrate_lane(lane_f, integrator, xs, us, ps, dtv)
-            )
-        return (x_next, J), (x_next, u)
+            pd = zeros == zeros  # true
+            x_full = x_cfg
 
-    xs_in = (Xb, Ub, k, K, refs) if tracking else (Xb, Ub, k, K)
-    (x_last, J), (Xt, Un) = jax.lax.scan(
-        step, (Xb[0], jnp.zeros((), Xb.dtype)), xs_in
-    )
-    ef = x_last - goal
-    return Xt, Un, J + ef @ Qf @ ef
+        grad = [Qu[i] + sum(Quu_reg[i][j] * x_full[j] for j in range(nu))
+                for i in range(nu)]
+        valid = pd
+        for i in range(nu):
+            if cfg[i] == 0:
+                valid = valid & (x_full[i] >= lb[i]) & (x_full[i] <= ub[i])
+            elif cfg[i] == 1:
+                valid = valid & (grad[i] >= 0.0)
+            else:
+                valid = valid & (grad[i] <= 0.0)
+        take = valid & (~taken)
+        taken = taken | valid
+        for i in range(nu):
+            k_sel[i] = jnp.where(take, x_full[i], k_sel[i])
+        if free_idx:
+            for a, fi in enumerate(free_idx):
+                for b, fj in enumerate(free_idx):
+                    Hinv_free_sel[fi][fj] = jnp.where(
+                        take, Hinv[a][b], Hinv_free_sel[fi][fj]
+                    )
 
+    fail = (~pd_all) | (~taken)
 
-@functools.lru_cache(maxsize=None)
-def _forward_op(kind: str, integrator: str, clamp: bool, tracking: bool):
-    # Gate on a minimum TOTAL batch (folded across nested vmaps — see
-    # batched_dispatch): the kernel pads to tile_b=1024 lanes, so small
-    # batches (e.g. the ~11-entry alpha ladder of an unbatched
-    # enable_parallel solve) would do ~90x redundant work — the same
-    # no-lane-parallelism regime the batch-of-one experiment measured as a
-    # net loss. A fleet vmap AROUND the ladder still reaches the kernel
-    # (total = fleet x ladder). ``tracking`` statically selects the
-    # reference_states variant (per-step reference rides a stage input);
-    # the goal variant keeps the refs-free signature and kernel.
-    def fused(Xb, Ub, k, K, alpha, dtv, params, Q, R, Qf, goal, *rest):
-        if tracking:
-            refs, lb, ub = rest
-        else:
-            refs = None
-            (lb, ub) = rest
-        return _forward_fused_impl(
-            Xb, Ub, k, K, Xb[:, 0], alpha, dtv, params, Q, R, Qf, goal,
-            refs, lb, ub, kind=kind, integrator=integrator, clamp=clamp,
-            tile_b=DEFAULT_TILE_B, interpret=False,
-        )
+    # K = -Hfree^-1 Qux on free rows (zero on clamped rows/cols mix)
+    K_t = [
+        [
+            -sum(Hinv_free_sel[i][l] * Qux[l][j] for l in range(nu))
+            for j in range(nx)
+        ]
+        for i in range(nu)
+    ]
 
-    return make_batched_op(
-        functools.partial(_scan_forward_single, kind, integrator, clamp,
-                          tracking),
-        fused, f"{kind} forward rollout", min_batch=MIN_KERNEL_BATCH,
+    # dV += [Qu.k, 0.5 k'Quu k]
+    dv0 = sum(Qu[i] * k_sel[i] for i in range(nu))
+    dv1 = 0.5 * sum(
+        k_sel[i] * Quu[i][j] * k_sel[j]
+        for i in range(nu) for j in range(nu)
     )
 
+    # V updates (clddp_solver.cpp:186-193)
+    Quu_k = _matvec(Quu, k_sel, nu, nu)
+    Kt = _transpose(K_t, nu, nx)
+    Vx_new = [
+        Qx[i]
+        + sum(Kt[i][l] * Quu_k[l] for l in range(nu))
+        + sum(Qux[l][i] * k_sel[l] for l in range(nu))
+        + sum(Kt[i][l] * Qu[l] for l in range(nu))
+        for i in range(nx)
+    ]
+    QuuK = _matmul(Quu, K_t, nu, nu, nx)
+    KtQuuK = _matmul(Kt, QuuK, nx, nu, nx)
+    QuxtK = _matmul(_transpose(Qux, nu, nx), K_t, nx, nu, nx)
+    Vxx_new = [
+        [
+            Qxx[i][j] + KtQuuK[i][j] + QuxtK[i][j] + QuxtK[j][i]
+            for j in range(nx)
+        ]
+        for i in range(nx)
+    ]
+    Vxx_new = [
+        [0.5 * (Vxx_new[i][j] + Vxx_new[j][i]) for j in range(nx)]
+        for i in range(nx)
+    ]
 
-def forward_rollout_op(problem, cc, Xb, Ub, k, K, alpha):
-    """Single-instance closed-loop rollout through the batch-aware op: plain
-    scan unbatched, the fused Pallas kernel under vmap on TPU f32. Returns
-    (X_new (N+1,nx), U_new (N,nu), J)."""
-    obj = problem.objective
-    dtype = Xb.dtype
-    model = problem.model
-    kind = _registry_key(model)
-    entry = _REGISTRY[kind]
-    n_params, param_fn = entry[0], entry[1]
-    params = jnp.asarray(param_fn(model), dtype)
-    if n_params == 0:
-        params = jnp.zeros((1,), dtype)
-    nu = Ub.shape[1]
-    if cc is not None:
-        lb = jnp.asarray(cc.lower, dtype)
-        ub = jnp.asarray(cc.upper, dtype)
-    else:
-        lb = jnp.zeros((nu,), dtype)
-        ub = jnp.zeros((nu,), dtype)
-    goal = jnp.asarray(obj.reference_state, dtype)
-    tracking = obj.reference_states is not None
-    op = _forward_op(kind, model.integration_type, cc is not None, tracking)
-    # (N, nx) or (N+1, nx) accepted; only rows 0..N-1 enter the running cost.
-    rest = ((jnp.asarray(obj.reference_states, dtype)[: Ub.shape[0]],)
-            if tracking else ())
-    Xt, Un, J = op(
-        Xb[:-1], Ub, k, K, jnp.asarray(alpha, dtype),
-        jnp.asarray(problem.timestep, dtype), params,
-        jnp.asarray(obj.Q, dtype), jnp.asarray(obj.R, dtype),
-        jnp.asarray(obj.Qf, dtype), goal, *rest,
-        lb, ub,
-    )
-    X_new = jnp.concatenate([Xb[:1], Xt], axis=0)
-    return X_new, Un, J
+    qu_absmax = jnp.abs(Qu[0])
+    for i in range(1, nu):
+        qu_absmax = jnp.maximum(qu_absmax, jnp.abs(Qu[i]))
 
+    return k_sel, K_t, Vx_new, Vxx_new, dv0, dv1, fail, qu_absmax
 
-def forward_eligible(problem) -> bool:
-    """Same dispatch philosophy as the backward kernel: quadratic objective
-    (goal OR per-step reference_states trajectory — the latter rides a
-    stage input), registered model, explicit integrator."""
-    from cddp_tpu.costs.objective import QuadraticObjective
-
-    obj = problem.objective
-    return (
-        isinstance(obj, QuadraticObjective)
-        and lane_spec(problem.model) is not None
-        and problem.model.integration_type in ("euler", "heun", "rk3", "rk4")
-    )

@@ -1,17 +1,21 @@
-"""Whole-solve fused CLDDP kernel: the complete batched MPC solve as ONE
-``pallas_call``.
+"""Whole-solve fused CLDDP kernel: the complete batched solve as ONE
+``pallas_call`` through Pallas's Triton route.
 
-The batched CLDDP iteration previously ran as three XLA program stages per
-iteration — a vmapped-AD derivative sweep materializing (B, N, ...) stage
-tensors in HBM, the fused backward kernel (ops/pallas/riccati.py), and the
-fused forward kernel (ops/pallas/rollout.py) — plus XLA glue for the
-line-search / regularization driver (solvers/clddp.py:_solve). This kernel
-runs the *entire* solve — initial cost, per-iteration dynamics Jacobians +
+Run as XLA, a vmapped CLDDP solve is a ``lax.while_loop`` over reverse and
+forward ``lax.scan`` passes, so every timestep of every pass, iteration and
+line-search rung is a chain of small kernels over the batch. This kernel
+runs the *entire* solve -- initial cost, per-iteration dynamics Jacobians +
 quadratic-cost derivatives, the control-limited Riccati recursion with the
 exact 3^nu enum BoxQP, the sequential-first-success line search, and the
-acceptance / regularization / convergence driver — inside one kernel, with
-the trajectory, gains and candidate buffers resident in VMEM for the whole
-solve. HBM traffic collapses to (x0, seeds, consts) in and (solution) out.
+acceptance / regularization / convergence driver -- in one launch, with each
+instance's solve held by one GPU thread.
+
+Layout: the batch is the last axis of every array ("lanes"), tiled into
+power-of-two blocks of ``tile_b`` instances, one Triton program per block.
+Adjacent threads read adjacent instances, so every load is coalesced. The
+trajectory, gains, line-search candidates and per-instance driver scalars
+live in per-instance workspace in device memory (the Triton route has no
+scratch memory): outputs of the call that the wrapper drops.
 
 Semantics mirror ``solvers/clddp.py:_solve`` (itself mirroring
 cddp_solver_base.cpp:29-186 + clddp_solver.cpp) exactly:
@@ -19,7 +23,7 @@ cddp_solver_base.cpp:29-186 + clddp_solver.cpp) exactly:
 - backward regularization-retry loop (cddp_solver_base.cpp:94-111) as a
   masked in-kernel loop with per-lane regularization;
 - dynamics linearization A = I + dt*Fx, B = dt*Fu of the *continuous*
-  dynamics (cddp_solver_base.cpp:319-358 parity — Euler linearization
+  dynamics (cddp_solver_base.cpp:319-358 parity -- Euler linearization
   regardless of rollout integrator), from an analytic derivative lane
   function or a ``jax.jvp`` of the model lane function;
 - sequential first-success alpha ladder with Armijo-ratio acceptance
@@ -31,10 +35,10 @@ cddp_solver_base.cpp:29-186 + clddp_solver.cpp) exactly:
   ``lax.while_loop`` select semantics).
 
 Dispatch: :func:`clddp_solve_op` builds a batch-aware op (scan = the XLA
-``_solve`` driver) so CLDDP solves route here automatically for vmapped TPU
+``_solve`` driver) so CLDDP solves route here automatically for vmapped GPU
 float32 batches when :func:`mega_eligible` holds (registered continuous
-lane model, quadratic objective — goal or per-step ``reference_states``
-tracking — and a control box constraint with the enum BoxQP, default
+lane model, quadratic objective -- goal or per-step ``reference_states``
+tracking -- and a control box constraint with the enum BoxQP, default
 driver options). Parity with the XLA driver is pinned in
 tests/test_mega_clddp.py (interpret mode).
 """
@@ -48,35 +52,41 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from cddp_tpu.ops.pallas.batched_dispatch import make_batched_op
-from cddp_tpu.ops.pallas.riccati import clddp_backward_step_lanes
-from cddp_tpu.ops.pallas.rollout import (
-    MIN_KERNEL_BATCH,
-    _integrate_lane,
-    _is_discrete,
-    _registry_key,
+from cddp_tpu.ops.pallas.lanes import (
     _REGISTRY,
+    _integrate_lane,
+    _registry_key,
+    clddp_backward_step_lanes,
 )
 
-DEFAULT_TILE_B = 1024
+# Instances per Triton program (a power of two, as the route requires for
+# every loaded or stored block) and warps per program: one instance per
+# thread.
+DEFAULT_TILE_B = 128
+NUM_WARPS = 4
+# Smallest total batch the kernel engages for; below one tile the padding
+# is all waste.
+MIN_KERNEL_BATCH = DEFAULT_TILE_B
 
 
 def _i32(v):
-    """Loop bounds as concrete int32: python-int bounds become i64
-    under x64 and Mosaic then mixes i64 jaxpr indices with its i32
-    scf.for induction variables (arith.subi type mismatch)."""
-    import numpy as _np
+    """Loop bounds and counters as int32 (python ints trace as i64 under
+    x64, which would mix index widths inside the kernel)."""
+    return np.int32(v)
 
-    return _np.int32(v)
 
-# Scalar lane slots in the `sc` scratch.
+# Per-instance driver scalars: rows of the `sc` workspace.
 _DONE, _STATUS, _COST, _REG, _INFDU, _ALPHA_PR, _IT = 0, 1, 2, 3, 4, 5, 6
 _BP_DONE, _BP_LIMIT, _DV0, _DV1 = 7, 8, 9, 10
 _LS_FOUND, _LS_OK, _LS_J, _LS_ALPHA, _ALPHA_CUR = 11, 12, 13, 14, 15
 _N_SCALARS = 16
+# Rows of `sc` returned as (cost, inf_du, reg, alpha_pr, iterations, status).
+_STAT_ROWS = (_COST, _INFDU, _REG, _ALPHA_PR, _IT, _STATUS)
 
 # Status codes (cddp_tpu.solution.Status) as kernel floats.
 _ST_MAX_ITER = 0.0
@@ -305,31 +315,32 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
                       tile_b: int = DEFAULT_TILE_B):
     """Build the whole-solve pallas_call for static problem structure.
 
-    Inputs (batch-last, lane-folded): x0 (nx,B), X0 (N+1,nx,B), U0 (N,nu,B),
-    k0 (N,nu,B), K0 (N,nu,nx,B), dt (1,B), params (max(n_params,1),B),
+    Inputs (batch-last): X0 (N+1,nx,B), U0 (N,nu,B), k0 (N,nu,B),
+    K0 (N,nu,nx,B), dt (1,B), params (max(n_params,1),B),
     Q (nx,nx,B) [dt-prescaled], R (nu,nu,B), Qf (nx,nx,B), goal (nx,B),
-    lbc/ubc (nu,B) [absolute control bounds].
+    [refs (N,nx,B) when tracking], lbc/ubc (nu,B) [absolute control bounds].
 
-    Outputs: X (N+1,nx,B), U (N,nu,B), k (N,nu,B), K (N,nu,nx,B),
-    stats (6,B) = [cost, inf_du, reg, alpha_pr, iterations, status].
+    Outputs: X (N+1,nx,B), U (N,nu,B), k (N,nu,B), K (N,nu,nx,B) and the
+    driver scalars sc (_N_SCALARS,B), followed by the line-search workspace
+    the caller drops.
     """
+    if tile_b & (tile_b - 1):
+        raise ValueError(f"tile_b must be a power of two, got {tile_b}")
     configs = list(product(range(3), repeat=nu))
-
     parallel_ls = cfg.parallel_ls
+    n_in = 13 if tracking else 12
 
-    def kernel(x0_ref, X0_ref, U0_ref, k0_ref, K0_ref, dt_ref, p_ref,
-               Q_ref, R_ref, Qf_ref, goal_ref, *rest):
-        if tracking:
-            refs_ref, rest = rest[0], rest[1:]
-        else:
-            refs_ref = None
-        (lbc_ref, ubc_ref, Xo_ref, Uo_ref, ko_ref, Ko_ref,
-         st_ref, Xs, Us, Xc, Uc, ks, Ks, sc) = rest[:14]
-        # parallel (best-merit) line search needs per-attempt trial
-        # buffers: the keep/discard decision arrives only after the
-        # rollout's merit is known, unlike first-success mode where the
-        # accepting attempt is simply the last one written.
-        Xt_s, Ut_s = rest[14:] if parallel_ls else (None, None)
+    def kernel(*refs):
+        (X0_ref, U0_ref, k0_ref, K0_ref, dt_ref, p_ref, Q_ref, R_ref,
+         Qf_ref, goal_ref) = refs[:10]
+        refs_ref = refs[10] if tracking else None
+        lbc_ref, ubc_ref = refs[n_in - 2:n_in]
+        # Xs/Us/ks/Ks are the nominal trajectory and gains, updated in place
+        # and returned; Xc/Uc hold the accepted line-search candidate, and
+        # in parallel (best-merit) mode Xt/Ut each trial's rollout, since
+        # the keep/discard decision arrives only after its merit is known.
+        Xs, Us, ks, Ks, sc, Xc, Uc = refs[n_in:n_in + 7]
+        Xt_s, Ut_s = refs[n_in + 7:] if parallel_ls else (None, None)
         dt = dt_ref[0]
         zeros = jnp.zeros_like(dt)
         ones = zeros + 1.0
@@ -370,18 +381,33 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
                     c = c + e[i] * Qf[i][j] * e[j]
             return c
 
-        # --- init: seed trajectories/gains, initial cost, driver state ----
-        Xs[...] = X0_ref[...]
-        Us[...] = U0_ref[...]
-        ks[...] = k0_ref[...]
-        Ks[...] = K0_ref[...]
-        Xc[...] = X0_ref[...]
-        Uc[...] = U0_ref[...]
+        def over_time(n, body):
+            """``body(t)`` for t in [0, n); the loop carries its own int32
+            counter so the index width is the same with and without x64."""
 
-        # NOTE on every index-using loop below: the fori induction variable
-        # is unusable under x64 (it traces i64 while Mosaic substitutes an
-        # i32 scf.for var -> verifier errors), so each loop carries its own
-        # int32 counter and ignores the index.
+            def step(_s, t):
+                body(t)
+                return t + _i32(1)
+
+            jax.lax.fori_loop(_i32(0), _i32(n), step, _i32(0))
+
+        # --- init: seed trajectories/gains, initial cost, driver state ----
+        def seed(t):
+            for i in range(nx):
+                Xs[t, i] = X0_ref[t, i]
+                Xc[t, i] = X0_ref[t, i]
+            for i in range(nu):
+                Us[t, i] = U0_ref[t, i]
+                Uc[t, i] = U0_ref[t, i]
+                ks[t, i] = k0_ref[t, i]
+                for j in range(nx):
+                    Ks[t, i, j] = K0_ref[t, i, j]
+
+        over_time(N, seed)
+        for i in range(nx):
+            Xs[N, i] = X0_ref[N, i]
+            Xc[N, i] = X0_ref[N, i]
+
         def cost0_body(_s, carry):
             J, t = carry
             x = [Xs[t, i] for i in range(nx)]
@@ -389,7 +415,7 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
             return (J + run_cost(x, u, t), t + _i32(1))
 
         J0, _ = jax.lax.fori_loop(
-            _i32(0), _i32(N), cost0_body, (zeros, jnp.asarray(0, jnp.int32))
+            _i32(0), _i32(N), cost0_body, (zeros, _i32(0))
         )
         J0 = J0 + term_cost([Xs[N, i] for i in range(nx)])
 
@@ -403,8 +429,7 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
 
         # --- one driver iteration ------------------------------------------
         def outer(_itn, carry):
-            done = sc[_DONE]
-            any_active = jnp.max(ones - done) > 0.5
+            any_active = jnp.max(ones - sc[_DONE]) > 0.5
 
             @pl.when(any_active)
             def _iteration():
@@ -490,8 +515,7 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
                                 nvx + sum(jnp.abs(Vx_new[i])
                                           for i in range(nx)),
                                 # zeros/ones lanes, not python scalars: a
-                                # scalar where() is f64 under x64, and
-                                # Mosaic rejects the f64->f32 cast.
+                                # scalar where() is f64 under x64.
                                 okl * jnp.where(fail, zeros, ones),
                                 t - _i32(1),
                             )
@@ -503,7 +527,7 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
                                 for i in range(nx)
                             ),
                             zeros, zeros, zeros, nvx0, ones,
-                            jnp.asarray(N - 1, jnp.int32),
+                            _i32(N - 1),
                         )
                         out = jax.lax.fori_loop(_i32(0), _i32(N), bstep, init)
                         dv0, dv1, qerr, nvx, okl = out[2:-1]
@@ -533,7 +557,8 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
 
                     return c2
 
-                jax.lax.fori_loop(_i32(0), _i32(cfg.bp_bound), bp_attempt, 0)
+                jax.lax.fori_loop(_i32(0), _i32(cfg.bp_bound), bp_attempt,
+                                  _i32(0))
 
                 # ---- line search: sequential first-success, or
                 # ---- best-merit over the full ladder (enable_parallel) ----
@@ -593,25 +618,21 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
                             return (tuple(x_next), J, tp1)
 
                         # Roll from the nominal Xs[0] — identical to the
-                        # driver's fused/scan forward op, which starts at
-                        # Xb[:, 0] (rollout.py:_scan_forward_single). The
+                        # driver's forward pass, which starts at X[0]. The
                         # solve() entry guarantees X0[0] == x0
                         # (Problem.initial_trajectories), so this equals
                         # problem.x0 on every reachable input.
                         x0l = tuple(Xs[0, i] for i in range(nx))
                         xN, J, _ = jax.lax.fori_loop(
-                            _i32(0), _i32(N), fstep,
-                            (x0l, zeros, jnp.asarray(0, jnp.int32)),
+                            _i32(0), _i32(N), fstep, (x0l, zeros, _i32(0)),
                         )
                         J = J + term_cost(list(xN))
 
                         dJ = sc[_COST] - J
                         expected = -alpha * (sc[_DV0] + 0.5 * alpha * sc[_DV1])
-                        # Explicit where-chain instead of sign(): Mosaic's
-                        # sign lowering rule synthesizes f64 constants under
-                        # x64 and dies on the f64->f32 cast. Semantics match
-                        # jnp.sign exactly: +/-1 on nonzero, +/-0 on zero,
-                        # NaN propagates (both comparisons false -> dJ*0).
+                        # jnp.sign(dJ) as a where-chain over lane vectors:
+                        # +/-1 on nonzero, +/-0 on zero, NaN propagates
+                        # (both comparisons false -> dJ*0).
                         sign_dJ = jnp.where(
                             dJ > 0.0, ones,
                             jnp.where(dJ < 0.0, -ones, dJ * 0.0),
@@ -627,7 +648,7 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
                             # ladder entry is evaluated.
                             take = accept & mnf & (J < sc[_LS_J])
 
-                            def commit(_s2, t):
+                            def commit(t):
                                 tp1 = t + _i32(1)
                                 for i in range(nx):
                                     Xc[tp1, i] = jnp.where(
@@ -637,12 +658,8 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
                                     Uc[t, i] = jnp.where(
                                         take, Ut_s[t, i], Uc[t, i]
                                     )
-                                return tp1
 
-                            jax.lax.fori_loop(
-                                _i32(0), _i32(N), commit,
-                                jnp.asarray(0, jnp.int32),
-                            )
+                            over_time(N, commit)
                         else:
                             take = accept & mnf
                             sc[_LS_FOUND] = jnp.where(
@@ -658,12 +675,13 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
 
                     return c3
 
-                jax.lax.fori_loop(_i32(0), _i32(cfg.n_alpha), ls_iter, 0)
+                jax.lax.fori_loop(_i32(0), _i32(cfg.n_alpha), ls_iter,
+                                  _i32(0))
 
                 # ---- acceptance / regularization / convergence ----
                 fp_ok = sc[_LS_OK] > 0.5  # participate & first-success
 
-                def copy_body(_s, t):
+                def accept_candidate(t):
                     tp1 = t + _i32(1)
                     for i in range(nx):
                         Xs[tp1, i] = jnp.where(
@@ -671,12 +689,9 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
                         )
                     for i in range(nu):
                         Us[t, i] = jnp.where(fp_ok, Uc[t, i], Us[t, i])
-                    return tp1
 
-                jax.lax.fori_loop(_i32(0), _i32(N), copy_body,
-                                  jnp.asarray(0, jnp.int32))
-                # Xs[0] never changes: the forward op's X_new[0] is the
-                # nominal Xb[:, 0] (== x0 by the solve() precondition).
+                # Xs[0] never changes: the forward pass keeps X[0] = x0.
+                over_time(N, accept_candidate)
 
                 cost = sc[_COST]
                 J_new = sc[_LS_J]
@@ -729,91 +744,51 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
 
             return carry
 
-        jax.lax.fori_loop(_i32(0), _i32(cfg.max_iterations), outer, 0)
+        jax.lax.fori_loop(_i32(0), _i32(cfg.max_iterations), outer, _i32(0))
 
-        # --- emit ---
-        Xo_ref[...] = Xs[...]
-        Uo_ref[...] = Us[...]
-        ko_ref[...] = ks[...]
-        Ko_ref[...] = Ks[...]
-        st_ref[0] = sc[_COST]
-        st_ref[1] = sc[_INFDU]
-        st_ref[2] = sc[_REG]
-        st_ref[3] = sc[_ALPHA_PR]
-        st_ref[4] = sc[_IT]
-        st_ref[5] = sc[_STATUS]
-
-    assert tile_b % 1024 == 0, tile_b
-    tbs = tile_b // 128
     np_eff = max(n_params, 1)
 
-    def call(x0, X0, U0, k0, K0, dtv, params, Q, R, Qf, goal, refs, lbc,
-             ubc, interpret=False):
+    def call(X0, U0, k0, K0, dtv, params, Q, R, Qf, goal, refs, lbc, ubc,
+             interpret=False):
         # refs is None (and unused) when not tracking.
-        Btot = x0.shape[-1]
-        assert Btot % tile_b == 0, (Btot, tile_b)
-        grid = (Btot // tile_b,)
-        dtype = x0.dtype
-        rows = Btot // 128
-
-        def fold(v):
-            return v.reshape(*v.shape[:-1], rows, 128)
+        Btot = X0.shape[-1]
+        if Btot % tile_b:
+            raise ValueError(f"batch {Btot} is not a multiple of {tile_b}")
+        dtype = X0.dtype
 
         def spec(*dims):
-            blk = tuple(dims) + (tbs, 128)
             nd = len(dims)
             return pl.BlockSpec(
-                blk, lambda b, _nd=nd: (0,) * _nd + (b, 0),
-                memory_space=pltpu.VMEM,
+                tuple(dims) + (tile_b,), lambda b, _nd=nd: (0,) * _nd + (b,)
             )
 
-        in_specs = [
-            spec(nx), spec(N + 1, nx), spec(N, nu), spec(N, nu),
-            spec(N, nu, nx), spec(1), spec(np_eff), spec(nx, nx),
-            spec(nu, nu), spec(nx, nx), spec(nx),
-        ] + ([spec(N, nx)] if tracking else []) + [spec(nu), spec(nu)]
-        out_specs = (
-            spec(N + 1, nx), spec(N, nu), spec(N, nu), spec(N, nu, nx),
-            spec(6),
-        )
-        out_shape = (
-            jax.ShapeDtypeStruct((N + 1, nx, rows, 128), dtype),
-            jax.ShapeDtypeStruct((N, nu, rows, 128), dtype),
-            jax.ShapeDtypeStruct((N, nu, rows, 128), dtype),
-            jax.ShapeDtypeStruct((N, nu, nx, rows, 128), dtype),
-            jax.ShapeDtypeStruct((6, rows, 128), dtype),
-        )
-        scratch = [
-            pltpu.VMEM((N + 1, nx, tbs, 128), dtype),   # Xs
-            pltpu.VMEM((N, nu, tbs, 128), dtype),       # Us
-            pltpu.VMEM((N + 1, nx, tbs, 128), dtype),   # Xc
-            pltpu.VMEM((N, nu, tbs, 128), dtype),       # Uc
-            pltpu.VMEM((N, nu, tbs, 128), dtype),       # ks
-            pltpu.VMEM((N, nu, nx, tbs, 128), dtype),   # Ks
-            pltpu.VMEM((_N_SCALARS, tbs, 128), dtype),  # sc
-        ]
-        if parallel_ls:
-            scratch += [
-                pltpu.VMEM((N + 1, nx, tbs, 128), dtype),  # Xt (trial)
-                pltpu.VMEM((N, nu, tbs, 128), dtype),      # Ut (trial)
-            ]
-        ins = (x0, X0, U0, k0, K0, dtv, params, Q, R, Qf, goal)
-        if tracking:
-            ins = ins + (refs,)
-        args = [fold(v) for v in ins + (lbc, ubc)]
+        def shape(*dims):
+            return jax.ShapeDtypeStruct(tuple(dims) + (Btot,), dtype)
+
+        in_dims = [
+            (N + 1, nx), (N, nu), (N, nu), (N, nu, nx), (1,), (np_eff,),
+            (nx, nx), (nu, nu), (nx, nx), (nx,),
+        ] + ([(N, nx)] if tracking else []) + [(nu,), (nu,)]
+        out_dims = [
+            (N + 1, nx), (N, nu), (N, nu), (N, nu, nx), (_N_SCALARS,),
+            (N + 1, nx), (N, nu),
+        ] + ([(N + 1, nx), (N, nu)] if parallel_ls else [])
+        ins = (X0, U0, k0, K0, dtv, params, Q, R, Qf, goal)
+        ins = ins + ((refs,) if tracking else ()) + (lbc, ubc)
         outs = pl.pallas_call(
             kernel,
-            grid=grid,
-            in_specs=in_specs,
-            out_specs=out_specs,
-            out_shape=out_shape,
-            scratch_shapes=scratch,
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=(pltpu.PARALLEL,)
+            grid=(Btot // tile_b,),
+            in_specs=[spec(*d) for d in in_dims],
+            out_specs=[spec(*d) for d in out_dims],
+            out_shape=[shape(*d) for d in out_dims],
+            compiler_params=pl_triton.CompilerParams(
+                num_warps=NUM_WARPS, num_stages=1
             ),
+            backend="triton",
             interpret=interpret,
-        )(*args)
-        return tuple(o.reshape(*o.shape[:-2], Btot) for o in outs)
+            name="clddp_whole_solve",
+        )(*ins)
+        return tuple(outs[:5])
 
     return call
 
@@ -821,26 +796,21 @@ def make_solve_kernel(nx, nu, N, n_params, lane_f, deriv_f, integrator,
 def mega_eligible(problem, options) -> bool:
     """Static dispatch predicate for the whole-solve kernel.
 
-    Requires: registered continuous-dynamics lane model, a
-    QuadraticObjective (goal or per-step reference_states tracking), a ControlConstraint with the enum BoxQP eligible,
-    and none of the driver features the kernel doesn't model (history
-    recording, verbose/debug printing, cpu-time limit). Both line-search
-    modes are supported (sequential first-success and enable_parallel
-    best-merit). All non-(x0/X0/U0/gains) problem leaves must be concrete —
-    checked separately at the dispatch site.
+    Requires: a model with a registered lane function, a
+    QuadraticObjective (goal or per-step reference_states tracking), a
+    ControlConstraint with the enum BoxQP eligible, and none of the driver
+    features the kernel doesn't model (history recording, verbose/debug
+    printing, cpu-time limit). Both line-search modes are supported
+    (sequential first-success and enable_parallel best-merit). All
+    non-(x0/X0/U0/gains) problem leaves must be concrete — checked
+    separately at the dispatch site.
     """
-    import os
-
     from cddp_tpu.costs.objective import QuadraticObjective
 
-    if os.environ.get("CDDP_TPU_NO_MEGA"):  # emergency kill switch
-        return False
     obj = problem.objective
     cc = problem.get_constraint("ControlConstraint")
     kind = _registry_key(problem.model)
     if kind is None or cc is None:
-        return False
-    if _is_discrete(_REGISTRY[kind]):
         return False
     enum_ok = options.box_qp.method == "enum" or (
         options.box_qp.method == "auto"
@@ -851,7 +821,6 @@ def mega_eligible(problem, options) -> bool:
         and enum_ok
         and problem.model.integration_type in ("euler", "heun", "rk3", "rk4")
         and options.solve_engine != "xla"
-        and options.backward_engine != "scan"
         and not options.return_iteration_info
         and not options.verbose
         and not options.debug
@@ -861,37 +830,7 @@ def mega_eligible(problem, options) -> bool:
         # retry loop has no finite bound (the XLA driver spins too, but it
         # matches the reference — keep it there).
         and options.regularization.update_factor > 1.0
-        and _vmem_estimate_bytes(problem, options) <= _VMEM_BUDGET_BYTES
     )
-
-
-# The kernel keeps the whole horizon VMEM-resident: every (N, ...) input/
-# output block plus the trajectory/gain/candidate scratch lives on-chip for
-# the whole solve (that is the point — zero HBM round-trips between passes).
-# v5e/v4 cores have ~16 MiB of VMEM; leave headroom for Mosaic temporaries.
-# Long horizons or big state dims must keep the streamed per-pass kernels
-# (riccati.py walks one timestep per grid step precisely so VMEM stays flat
-# in N). Unicycle N=20 totals ~3.9 MB; N~90 crosses the budget.
-_VMEM_BUDGET_BYTES = 12 * 1024 * 1024
-
-
-def _vmem_estimate_bytes(problem, options=None,
-                         tile_b: int = DEFAULT_TILE_B) -> int:
-    """Lane-vector count x tile bytes for all kernel blocks + scratch."""
-    nx, nu, N = problem.state_dim, problem.control_dim, problem.horizon
-    kind = _registry_key(problem.model)
-    np_eff = max(_REGISTRY[kind][0], 1) if kind else 1
-    tracking = problem.objective.reference_states is not None
-    parallel_ls = bool(options.enable_parallel) if options else False
-    ins = (
-        nx + (N + 1) * nx + 2 * N * nu + N * nu * nx + 1 + np_eff
-        + 2 * nx * nx + nu * nu + nx + 2 * nu + (N * nx if tracking else 0)
-    )
-    outs = (N + 1) * nx + 2 * N * nu + N * nu * nx + 6
-    scratch = 2 * (N + 1) * nx + 3 * N * nu + N * nu * nx + _N_SCALARS
-    if parallel_ls:
-        scratch += (N + 1) * nx + N * nu
-    return (ins + outs + scratch) * tile_b * 4
 
 
 def problem_consts_concrete(problem) -> bool:
@@ -916,14 +855,14 @@ def problem_consts_concrete(problem) -> bool:
     jax.jit,
     static_argnames=("cfg", "kind", "integrator", "tile_b", "interpret"),
 )
-def _mega_impl(x0, X0, U0, k0, K0, dtv, params, Q, R, Qf, goal, refs, lbc,
-               ubc, cfg: _Cfg, kind: str, integrator: str,
+def _mega_impl(X0, U0, k0, K0, dtv, params, Q, R, Qf, goal, refs, lbc, ubc,
+               cfg: _Cfg, kind: str, integrator: str,
                tile_b: int = DEFAULT_TILE_B, interpret: bool = False):
-    """Batch-first wrapper: pad to a tile multiple, transpose to batch-last,
-    run the kernel, trim. ``refs`` is None for goal-form objectives.
-    Returns (X, U, k, K, stats(B,6))."""
-    B0 = x0.shape[0]
-    nx, nu = x0.shape[1], U0.shape[2]
+    """Batch-first wrapper: pad to a tile multiple (repeating the last
+    instance), transpose to batch-last, run the kernel, trim. ``refs`` is
+    None for goal-form objectives. Returns (X, U, k, K, stats(B,6))."""
+    B0 = X0.shape[0]
+    nx, nu = X0.shape[2], U0.shape[2]
     N = U0.shape[1]
     pad = (-B0) % tile_b
     tracking = refs is not None
@@ -942,19 +881,22 @@ def _mega_impl(x0, X0, U0, k0, K0, dtv, params, Q, R, Qf, goal, refs, lbc,
     )
     args = [
         prep(v) if v is not None else None
-        for v in (x0, X0, U0, k0, K0, dtv[:, None], params, Q, R, Qf,
-                  goal, refs, lbc, ubc)
+        for v in (X0, U0, k0, K0, dtv[:, None], params, Q, R, Qf, goal,
+                  refs, lbc, ubc)
     ]
-    X, U, k, K, st = call(*args, interpret=interpret)
+    X, U, k, K, sc = call(*args, interpret=interpret)
     unprep = lambda v: jnp.moveaxis(v, -1, 0)[:B0]
+    st = sc[jnp.asarray(_STAT_ROWS)]
     return unprep(X), unprep(U), unprep(k), unprep(K), unprep(st)
 
 
-def build_fused_solve(problem, options, interpret: bool = False):
+def build_fused_solve(problem, options, interpret: bool = False,
+                      tile_b: int = DEFAULT_TILE_B):
     """Batch-first fused whole-solve for a concrete (problem, options):
     ``fused(x0, X0, U0, k0, K0) -> (X, U, k, K, cost, inf_du, reg,
-    alpha_pr, iterations(int32), status(int32))``. Also the test entry for
-    interpret-mode parity runs."""
+    alpha_pr, iterations(int32), status(int32))``. ``x0`` only fixes the
+    batch: each instance rolls out from ``X0[:, 0]``, which ``solve``
+    sets to x0. Also the test entry for interpret-mode parity runs."""
     cfg = _make_cfg(options)
     kind = _registry_key(problem.model)
     integrator = problem.model.integration_type
@@ -980,14 +922,14 @@ def build_fused_solve(problem, options, interpret: bool = False):
         else:
             refs = None
         X, U, k, K, st = _mega_impl(
-            x0, X0, U0, k0, K0,
+            X0, U0, k0, K0,
             jnp.broadcast_to(jnp.asarray(problem.timestep, dtype), (B,)),
             params, bc(obj.Q), bc(obj.R), bc(obj.Qf),
             bc(obj.reference_state), refs,
             bc(jnp.asarray(cc.lower, dtype)),
             bc(jnp.asarray(cc.upper, dtype)),
             cfg=cfg, kind=kind, integrator=integrator,
-            tile_b=DEFAULT_TILE_B, interpret=interpret,
+            tile_b=tile_b, interpret=interpret,
         )
         return (
             X, U, k, K, st[:, 0], st[:, 1], st[:, 2], st[:, 3],
@@ -997,18 +939,18 @@ def build_fused_solve(problem, options, interpret: bool = False):
     return fused_impl
 
 
-def clddp_solve_op(problem, options, interpret: bool = False):
+def clddp_solve_op(problem, options):
     """Batch-aware whole-solve op for this (problem, options) pair.
 
     ``op(x0, X0, U0, k0, K0) -> (X, U, k, K, cost, inf_du, reg, alpha_pr,
     iterations(int32), status(int32))``. Unbatched / CPU / non-f32 calls run
-    the XLA driver per instance; vmapped TPU float32 batches >= MIN_KERNEL_
-    BATCH run the fused kernel.
+    the XLA driver per instance; vmapped GPU float32 batches >=
+    MIN_KERNEL_BATCH run the fused kernel.
     """
     from cddp_tpu.solvers import clddp as _clddp
 
     kind = _registry_key(problem.model)
-    fused_impl = build_fused_solve(problem, options, interpret)
+    fused_impl = build_fused_solve(problem, options)
 
     def scan_single(x0, X0, U0, k0, K0):
         sol = _clddp._solve(

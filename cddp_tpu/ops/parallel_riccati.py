@@ -1,6 +1,6 @@
 """Parallel-in-time LQR backward pass via associative scan.
 
-SURVEY.md §2.7's "TPU upgrade path": the sequential Riccati recursion has
+SURVEY.md §2.7's accelerator upgrade path: the sequential Riccati recursion has
 O(N) depth; Särkkä & García-Fernández, "Temporal Parallelization of Bayesian
 Smoothers / Dynamic Programming and LQR" (see PAPERS.md: parallel Riccati
 recursion, arXiv 1809.06360 / 1407.6898 lineage) show the LQR value-function
@@ -46,9 +46,10 @@ from cddp_tpu.ops.linalg import inv_small, psd_solve
 
 def _gen_solve(M, X):
     """Solve M Y = X for general (non-symmetric) M. Closed-form adjugate
-    inverse for n <= 4 — fuses on TPU and avoids the LAPACK LU custom call,
-    which both breaks XLA fusion and is unsafe under multi-device CPU
-    shard_map in current jaxlib (heap corruption) — LU fallback above."""
+    inverse for n <= 4 — fuses into the surrounding XLA kernel and avoids
+    the LAPACK LU custom call, which both breaks XLA fusion and is unsafe
+    under multi-device CPU shard_map in current jaxlib (heap corruption) —
+    LU fallback above."""
     n = M.shape[-1]
     if n <= 4:
         return inv_small(M) @ X

@@ -1,6 +1,6 @@
 """Solver option trees.
 
-TPU-native rebuild of the reference option structs
+JAX rebuild of the reference option structs
 (``include/cddp-cpp/cddp_core/options.hpp:41-251``). Field names and defaults
 mirror the reference exactly — defaults ARE behavior there (e.g.
 ``max_iterations = 1``, the barrier mu ladder, filter thresholds).
@@ -89,7 +89,7 @@ class BoxQPOptions:
     max_ls_iterations: int = 99
     # JAX-only solver selection. "enum" solves the box QP exactly by
     # enumerating all 3^n active-set configurations in parallel (fixed-depth,
-    # TPU-native; bit-exact optimum of the strictly convex QP). "newton" is
+    # branch-free; bit-exact optimum of the strictly convex QP). "newton" is
     # the reference's iterative projected-Newton. "auto" picks enum for
     # n <= enum_max_dim and newton above.
     method: str = "auto"
@@ -179,7 +179,7 @@ class IPDDPOptions:
     # JAX-only: fold the y-weighted constraint Hessians (the exact Lagrangian
     # curvature) into the condensed backward. Fixes the alpha-pinned limit
     # cycle on curved constraints with long inactive arcs (norm-type thrust
-    # limits; STATUS.md) that stalls the reference, which has this term only
+    # limits) that stalls the reference, which has this term only
     # in MSIPDDP full-DDP mode (msipddp_solver.cpp:1308-1317). True /
     # False / "auto" as for slack_soc ("auto" arms on the same stall
     # latch).
@@ -192,13 +192,6 @@ class IPDDPOptions:
     # "sequential" = reverse lax.scan (O(N) depth); "parallel" =
     # associative-scan Riccati (O(log N) depth; ops/parallel_riccati.py).
     lqr_backend: str = "sequential"
-    # JAX-only: engine for the interior-point forward rollout. "auto"
-    # dispatches vmap-batched TPU f32 solves (>= 128 instances) with a
-    # registered model lane + cost lane + control/state-box constraint
-    # stacks to the fused Pallas rollout kernel (ops/pallas/ip_rollout.py);
-    # everything else — and "scan" always — keeps the reference lax.scan
-    # forward.
-    forward_engine: str = "auto"
 
 
 @dataclass(frozen=True)
@@ -282,42 +275,28 @@ class CDDPOptions:
     print_solver_options: bool = False
     use_ilqr: bool = True
     # In the reference this toggles std::async thread fan-out over the alpha
-    # ladder (cddp_solver_base.cpp:248-317). On TPU every alpha is evaluated by
+    # ladder (cddp_solver_base.cpp:248-317). Here every alpha is evaluated by
     # one vmapped rollout either way; this flag only selects which result is
     # taken: False -> first successful alpha (sequential early-exit parity),
     # True -> best merit among successes (parallel parity).
     enable_parallel: bool = False
     num_threads: int = 1
-    # JAX-only: backward-pass engine. For CLDDP with a ControlConstraint,
-    # "auto" uses the fused Pallas Riccati+BoxQP kernel for batched (vmapped)
-    # solves on TPU float32 (17x end-to-end) and the lax.scan elsewhere;
-    # "scan" forces the scan everywhere. "fused" additionally opts IPDDP's
-    # condensed backward into its Pallas kernel (off by default: that
-    # backward is <1% of an IPDDP iteration at realistic shapes, and the
-    # custom-call boundary costs more than the kernel saves). All engines
-    # run identical math; see ops/pallas/riccati.py and ipddp_riccati.py.
-    backward_engine: str = "auto"
     # JAX-only: whole-solve engine for CLDDP. "auto" runs the entire batched
     # solve (derivatives + backward + line search + driver) as ONE Pallas
-    # kernel for vmapped TPU float32 fleets when the problem qualifies
+    # kernel for vmapped GPU float32 fleets when the problem qualifies
     # (registered continuous lane model, quadratic objective,
     # control box constraint with the enum BoxQP, default driver features);
-    # "xla" forces the per-pass XLA driver; "fused" asserts eligibility (a
-    # dispatch-debugging aid). See ops/pallas/mega_clddp.py.
+    # "xla" forces the per-pass XLA driver; "fused" requires eligibility
+    # and a GPU backend and raises otherwise (a dispatch-debugging aid).
+    # See ops/pallas/mega_clddp.py.
     solve_engine: str = "auto"
     # JAX-only: dot/einsum precision for every matmul the solver traces
-    # (jax.default_matmul_precision). On TPU the MXU runs f32 matmuls at
-    # bf16 input precision by default, which floors the achievable KKT
-    # residual near 1e-3 on badly-scaled problems (quadrotor Qf=500: the
-    # f32 iterate's TRUE f64-measured inf_du stalls at 1.4e-3, while the
-    # same f32 solve with exact f32 matmuls certifies 8e-5). "highest"
-    # costs nothing at SINGLE-solve shapes (nx<=13 matrices are
-    # latency-bound, not MXU-bound) and makes on-chip f32 match CPU f32
-    # numerics, so it is the default. Large vmapped fleets are the
-    # exception: batched small matmuls DO saturate the MXU, where exact
-    # f32 is ~3x the bf16-input cost (MPCC B=1024 fleet: 11.5k ticks/s
-    # at "default" vs 6.8k at "highest") — set "default" on throughput
-    # paths that don't need tight certificates.
+    # (jax.default_matmul_precision). "highest" keeps f32 matmuls exact
+    # f32 on accelerators whose default rounds their inputs (TF32 on an
+    # NVIDIA GPU keeps about three decimal digits), which would floor the
+    # achievable KKT residual on badly-scaled problems; with it, f32 on
+    # the device matches CPU f32 numerics. Throughput paths that do not
+    # need tight certificates may set "default".
     matmul_precision: str = "highest"
     return_iteration_info: bool = False
     warm_start: bool = False

@@ -1,11 +1,11 @@
 """Batched solving and receding-horizon MPC.
 
-This is the TPU payoff the reference cannot express (SURVEY.md §2.7: the
+This is the accelerator payoff the reference cannot express (SURVEY.md §2.7: the
 reference is strictly sequential per solve; its only parallelism is
 std::async over line-search alphas). Here a whole solver — iteration loop,
 backward scans, BoxQP, filter line search — is one XLA program, so
 ``vmap`` over problem instances amortizes the tiny per-problem matrices
-across thousands of trajectories and keeps the TPU busy.
+across thousands of trajectories and keeps the device busy.
 
 The MPC driver mirrors the reference's closed-loop pattern
 (examples/ipddp_mpcc_rc.py:649: per-tick solve, apply first control,

@@ -1,12 +1,12 @@
-"""Multi-chip scaling via jax.sharding.
+"""Multi-device scaling via jax.sharding.
 
 SURVEY.md §2.7 / §5: solver instances never communicate mid-solve, so
 scaling out is pure data parallelism — shard the problem batch over a device
-mesh with ``shard_map`` and let each chip run its vmapped block; a single
-``all_gather`` (implicit in the out_spec) collects results over ICI. No
-NCCL/MPI analogue is needed: XLA inserts the collectives.
+mesh with ``shard_map`` and let each device run its vmapped block; a single
+``all_gather`` (implicit in the out_spec) collects the results. No
+hand-written NCCL/MPI calls are needed: XLA inserts the collectives.
 
-``dp_mesh()`` builds the mesh; ``sharded_batched_solve`` is the multi-chip
+``dp_mesh()`` builds the mesh; ``sharded_batched_solve`` is the multi-device
 batched-MPC engine. Padding handles batch sizes not divisible by the mesh.
 """
 

@@ -7,7 +7,7 @@ two-level associative scan** (the classic Blelloch decomposition):
 
 1. each device runs a local reverse cumulative combine over its chunk of
    value-function elements (O(log L) depth on-chip);
-2. one ``all_gather`` of the per-chunk totals rides the ICI (each total is a
+2. one ``all_gather`` of the per-chunk totals crosses devices (each total is a
    single (A, b, C, eta, J) element — tens of floats, not trajectories);
 3. each device combines its local tails with the suffix of later chunks.
 
@@ -117,8 +117,7 @@ def sharded_lqr_backward(Q, q, R, r, M, A, B, d=None, *, mesh: Mesh,
     # a single small buffer. (Also: jax.lax.associative_scan and multi-buffer
     # all_gather inside shard_map trip heap corruption in this jaxlib's
     # XLA:CPU runtime — the local combine below is a lax.scan and the
-    # D-element suffix products are unrolled at trace time, both of which
-    # are at least as fast on TPU for these tiny chunks anyway.)
+    # D-element suffix products are unrolled at trace time.)
     sizes = [n * n, n, n * n, n, n * n]
 
     def _pack(e: _Elem):

@@ -1,6 +1,6 @@
 """Problem definition.
 
-TPU-native replacement for the reference ``CDDP`` context class
+JAX replacement for the reference ``CDDP`` context class
 (``cddp_core.hpp:212-442``): instead of a mutable context object that owns
 trajectories and regularization state, a :class:`Problem` is an immutable
 pytree bundling the system, objective, constraints, initial state and horizon.
@@ -20,7 +20,7 @@ from typing import Dict, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cddp_tpu.utils import struct
 
 from cddp_tpu.costs.objective import Objective
 from cddp_tpu.models.base import DynamicalSystem

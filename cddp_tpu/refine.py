@@ -1,14 +1,12 @@
-"""float64 polish for float32 (TPU) fleet solutions.
+"""float64 polish for float32 fleet solutions.
 
-TPU fleets solve in f32, where the achievable KKT-residual floor is
-~1e-3..1e-4 (docs/performance.md, round-2 f32 floor analysis) and some
-problem families cannot certify tol=1e-4 in f32 at all, engine-
-independently (pinned by tests/test_mega_ipddp.py's envelope test). The
-production recipe those notes promise — "solve f32 on-chip, then
-polish/verify in f64" — is this module: :func:`polish` re-solves in
-float64 on the host, warm-started from the fleet solution, and returns a
-Solution whose ``status_code`` / ``inf_pr`` / ``inf_du`` constitute a
-genuine f64 optimality certificate.
+Fleets solve in f32, where the achievable KKT-residual floor is
+~1e-3..1e-4 and some problem families cannot certify tol=1e-4 in f32 at
+all. The recipe "solve f32 on the device, then polish/verify in f64" is
+this module: :func:`polish` re-solves in float64 on the host,
+warm-started from the fleet solution, and returns a Solution whose
+``status_code`` / ``inf_pr`` / ``inf_du`` constitute a genuine f64
+optimality certificate.
 
 For IPDDP solutions that CONVERGED in f32 the polish is a *dual-warm*
 restart: the stacked duals/slacks, gains and costates recorded in the

@@ -10,7 +10,7 @@ from __future__ import annotations
 from typing import Optional
 
 import jax
-from flax import struct
+from cddp_tpu.utils import struct
 
 
 class Status:

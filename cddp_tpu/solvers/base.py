@@ -1,6 +1,6 @@
 """Shared solver machinery.
 
-TPU-native rebuild of ``CDDPSolverBase`` (``src/cddp_core/cddp_solver_base.cpp``).
+JAX rebuild of ``CDDPSolverBase`` (``src/cddp_core/cddp_solver_base.cpp``).
 The reference's template-method skeleton (timer, backward-with-retry loop,
 multi-alpha line search, history recording) becomes a set of pure helpers used
 by each solver's ``lax.while_loop`` driver:
@@ -329,7 +329,7 @@ def print_ddp_iteration(it, cost, inf_du, reg, alpha):
 
 _BANNER = r"""
  +---------------------------------------------------+
- |   cddp-tpu  --  constrained DDP, TPU-native        |
+ |   cddp-tpu  --  constrained DDP in JAX             |
  |   CLDDP / LogDDP / IPDDP / MSIPDDP on JAX/Pallas   |
  +---------------------------------------------------+
 """
@@ -365,11 +365,10 @@ def with_matmul_precision(fn):
 
     Decorate a solver's ``_solve(problem, options, ...)`` *inside* its
     ``jax.jit`` so every dot/einsum the solver traces carries the requested
-    precision. On TPU the MXU evaluates f32 matmuls with bf16 inputs under
-    the "default" precision, which floors the achievable KKT residual near
-    1e-3 on badly-scaled problems (see ``CDDPOptions.matmul_precision``);
-    "highest" restores exact-f32 numerics at no measurable cost for the
-    nx<=13 matrices this library traffics in. The config context
+    precision. Under the "default" precision an accelerator may round f32
+    matmul inputs (TF32 on an NVIDIA GPU), which floors the achievable KKT
+    residual on badly-scaled problems (see ``CDDPOptions.matmul_precision``);
+    "highest" keeps exact-f32 numerics. The config context
     participates in jit cache keys, so changing the option retraces."""
 
     @functools.wraps(fn)
@@ -384,9 +383,7 @@ def with_matmul_precision(fn):
 
 
 _ENGINE_CHOICES = {
-    "backward_engine": ("auto", "scan", "fused"),
     "solve_engine": ("auto", "xla", "fused"),
-    "ipddp.forward_engine": ("auto", "scan"),
     "ipddp.lqr_backend": ("sequential", "parallel"),
     "log_barrier.lqr_backend": ("sequential", "parallel"),
     "msipddp.lqr_backend": ("sequential", "parallel", "sharded"),
@@ -395,8 +392,8 @@ _ENGINE_CHOICES = {
 
 def validate_engine_options(options: CDDPOptions) -> None:
     """Reject typo'd engine selectors at solve entry. Every selector's
-    dispatch gate tests one specific value (e.g. ``forward_engine !=
-    "auto"``), so an unknown string would otherwise silently behave as the
+    dispatch gate tests one specific value (e.g. ``solve_engine !=
+    "xla"``), so an unknown string would otherwise silently behave as the
     other engine instead of erroring (JAX-only fields; no reference
     counterpart)."""
     for path, choices in _ENGINE_CHOICES.items():

@@ -1,6 +1,6 @@
 """CLDDP — control-limited DDP/iLQR (Tassa 2014).
 
-TPU-native rebuild of ``src/cddp_core/clddp_solver.cpp``:
+JAX rebuild of ``src/cddp_core/clddp_solver.cpp``:
 
 - backward Riccati recursion = reverse ``lax.scan`` with a per-step BoxQP for
   the constrained feedforward (clddp_solver.cpp:147-178) and a masked
@@ -54,28 +54,6 @@ def _backward_pass(
     Vx = problem.objective.terminal_cost_gradient(X[-1])
     Vxx = problem.objective.terminal_cost_hessian(X[-1])
     eye_u = jnp.eye(nu, dtype=dtype)
-
-    # Fused-engine path: the whole box-constrained Riccati recursion as one
-    # custom_vmap op — a Pallas TPU kernel for vmapped batches, the scan below
-    # otherwise. Only when the BoxQP resolves to the exact enum method, so
-    # both engines run identical math (the enum ignores warm starts).
-    enum_eligible = options.box_qp.method == "enum" or (
-        options.box_qp.method == "auto" and nu <= options.box_qp.enum_max_dim
-    )
-    if cc is not None and enum_eligible and options.backward_engine != "scan":
-        from cddp_tpu.ops.pallas.riccati import riccati_boxqp_backward
-
-        lb = jnp.broadcast_to(cc.lower, (N, nu)) - U
-        ub = jnp.broadcast_to(cc.upper, (N, nu)) - U
-        ks, Ks, dV, Qu_err, nvx, ok = riccati_boxqp_backward(
-            A, B, lx, lu, lxx, luu, lux, lb, ub, Vx, Vxx,
-            jnp.asarray(reg, dtype),
-        )
-        norm_Vx = nvx + jnp.sum(jnp.abs(Vx))
-        scaling = base.kkt_scaling(norm_Vx, N, nx, options)
-        return BackwardPassResult(
-            k=ks, K=Ks, dV=dV, inf_du=Qu_err / scaling, ok=ok
-        )
 
     def step(carry, inp):
         Vx, Vxx, dV, norm_Vx, Qu_err, ok = carry
@@ -150,40 +128,25 @@ def _forward_pass(problem: Problem, options: CDDPOptions, X, U, k, K, dV, cost, 
     dt = problem.timestep
     cc = problem.get_constraint("ControlConstraint")
 
-    # Fused-engine path (same dispatch rules as the backward kernel): the
-    # whole rollout + cost through a custom_vmap op — plain scan unbatched,
-    # one Pallas kernel for vmapped TPU f32 batches (~1.8x the scan forward
-    # at B=16384). Eligibility is static (registered model lane function,
-    # quadratic single-reference objective).
-    from cddp_tpu.ops.pallas import rollout as fused_rollout
+    ks_idx = jnp.arange(problem.horizon)
+    ts = jnp.arange(problem.horizon, dtype=X.dtype) * dt
 
-    if (
-        options.backward_engine != "scan"
-        and fused_rollout.forward_eligible(problem)
-    ):
-        X_new, U_new, J = fused_rollout.forward_rollout_op(
-            problem, cc, X, U, k, K, alpha
-        )
-    else:
-        ks_idx = jnp.arange(problem.horizon)
-        ts = jnp.arange(problem.horizon, dtype=X.dtype) * dt
+    def step(carry, inp):
+        x, J = carry
+        Xb, Ub, k_t, K_t, idx, t = inp
+        u = Ub + alpha * k_t + K_t @ (x - Xb)
+        if cc is not None:
+            u = cc.clamp(u)
+        J = J + problem.objective.running_cost(x, u, idx)
+        x_next = problem.model.discrete_dynamics(x, u, t, dt)
+        return (x_next, J), (x_next, u)
 
-        def step(carry, inp):
-            x, J = carry
-            Xb, Ub, k_t, K_t, idx, t = inp
-            u = Ub + alpha * k_t + K_t @ (x - Xb)
-            if cc is not None:
-                u = cc.clamp(u)
-            J = J + problem.objective.running_cost(x, u, idx)
-            x_next = problem.model.discrete_dynamics(x, u, t, dt)
-            return (x_next, J), (x_next, u)
-
-        (x_last, J), (X_tail, U_new) = jax.lax.scan(
-            step, (problem.x0, jnp.zeros((), X.dtype)),
-            (X[:-1], U, k, K, ks_idx, ts)
-        )
-        J = J + problem.objective.terminal_cost(x_last)
-        X_new = jnp.concatenate([problem.x0[None], X_tail], axis=0)
+    (x_last, J), (X_tail, U_new) = jax.lax.scan(
+        step, (problem.x0, jnp.zeros((), X.dtype)),
+        (X[:-1], U, k, K, ks_idx, ts)
+    )
+    J = J + problem.objective.terminal_cost(x_last)
+    X_new = jnp.concatenate([problem.x0[None], X_tail], axis=0)
 
     dJ = cost - J
     expected = -alpha * (dV[0] + 0.5 * alpha * dV[1])
@@ -463,27 +426,32 @@ def solve(
 
     # Whole-solve fused engine (ops/pallas/mega_clddp.py): for qualifying
     # problems the complete solve is a batch-aware op — the XLA driver per
-    # unbatched instance, ONE Pallas kernel for vmapped TPU f32 fleets.
+    # unbatched instance, ONE Pallas kernel for vmapped GPU f32 fleets.
     # The op closes over the problem's cost/model/constraint leaves, so
     # they must be concrete here (a vmap over x0 keeps them concrete; a
     # vmap/jit over cost matrices makes them tracers -> XLA driver).
     from cddp_tpu.ops.pallas import mega_clddp
+    from cddp_tpu.ops.pallas.batched_dispatch import kernel_backend
 
+    if options.solve_engine == "fused":
+        if not kernel_backend():
+            raise ValueError(
+                "solve_engine='fused' needs a GPU backend; got "
+                f"{jax.default_backend()!r} (use 'auto' or 'xla')"
+            )
+        if not mega_clddp.mega_eligible(problem, options):
+            raise ValueError(
+                "solve_engine='fused' requires a mega-eligible problem: "
+                "registered continuous lane model, quadratic objective "
+                "(goal or reference_states tracking), control box "
+                "constraint with the enum BoxQP, default driver features "
+                "(no verbose/debug/history/max_cpu_time)"
+            )
     if options.solve_engine == "fused" or (
         options.solve_engine == "auto"
         and mega_clddp.mega_eligible(problem, options)
         and mega_clddp.problem_consts_concrete(problem)
     ):
-        if options.solve_engine == "fused":
-            assert mega_clddp.mega_eligible(problem, options), (
-                "solve_engine='fused' requires a mega-eligible problem: "
-                "registered continuous lane model, quadratic objective "
-                "(goal or reference_states tracking), control box "
-                "constraint with the enum BoxQP, default driver features "
-                "(no verbose/debug/history/max_cpu_time/enable_parallel), "
-                "and a horizon small enough to fit VMEM "
-                "(mega_clddp._vmem_estimate_bytes)"
-            )
         op = mega_clddp.clddp_solve_op(problem, options)
         (Xs, Us, ks, Ks, cost, inf_du, reg, alpha_pr, iters, status) = op(
             problem.x0, X, U, k0, K0

@@ -1,6 +1,6 @@
 """LogDDP — relaxed log-barrier DDP.
 
-TPU-native rebuild of ``src/cddp_core/logddp_solver.cpp``: path constraints
+JAX rebuild of ``src/cddp_core/logddp_solver.cpp``: path constraints
 enter the Q-expansions as relaxed log-barrier gradients/Hessians
 (logddp_solver.cpp:517-529), the joint feedforward/feedback solve is one
 Cholesky over the stacked rhs [Q_u | Q_ux] (:544-558), acceptance is the
@@ -243,9 +243,8 @@ class _Carry(NamedTuple):
 
 def _drive(problem: Problem, options: CDDPOptions, X0, U0, k0, K0):
     """The iteration driver on a prepared seed (X is re-rolled from U
-    internally, so the X0 seed only sets shapes/dtype). Unjitted so the
-    whole-solve op's per-instance scan path (ops/pallas/mega_logddp.py)
-    can trace it directly."""
+    internally, so the X0 seed only sets shapes/dtype). Unjitted, so a
+    caller can trace it directly."""
     dtype = X0.dtype
     N, nu, nx = problem.horizon, problem.control_dim, problem.state_dim
     alphas = base.alphas_array(options, dtype)
@@ -475,41 +474,6 @@ _solve = functools.partial(jax.jit, static_argnums=(1,))(
 )
 
 
-@base.with_matmul_precision
-def _solve_mega(problem: Problem, options: CDDPOptions, X0, U0, k0, K0):
-    """Whole-solve fused engine entry (ops/pallas/mega_logddp.py): the
-    batch-aware whole-solve op — the XLA :func:`_drive` per unbatched
-    instance, ONE Pallas kernel for vmapped TPU f32 fleets. The kernel
-    consumes the dynamically-consistent X seed, so the rollout happens
-    here (idempotent with _drive's internal re-roll on the scan path)."""
-    from cddp_tpu.ops.pallas.mega_logddp import logddp_solve_op
-
-    N = problem.horizon
-    dtype = X0.dtype
-    X = open_loop_rollout(problem.model, problem.x0, U0, problem.timestep)
-    op = logddp_solve_op(problem, options)
-    (Xs, Us, ks, Ks, cost, cv, inf_du, mu, reg, alpha_pr, iters,
-     status) = op(problem.x0, X, U0, k0, K0)
-    time_points = jnp.arange(N + 1, dtype=dtype) * problem.timestep
-    return Solution(
-        solver_name="LogDDP",
-        status_code=status,
-        iterations_completed=iters,
-        final_objective=cost,
-        final_step_length=alpha_pr,
-        final_regularization=reg,
-        time_points=time_points,
-        state_trajectory=Xs,
-        control_trajectory=Us,
-        feedback_gains=Ks,
-        feedforward_gains=ks,
-        barrier_mu=mu,
-        inf_pr=cv,
-        inf_du=inf_du,
-        history=None,
-    )
-
-
 def solve(
     problem: Problem,
     options: CDDPOptions = CDDPOptions(),
@@ -533,24 +497,4 @@ def solve(
     else:
         k0 = jnp.zeros((N, nu), X0.dtype)
         K0 = jnp.zeros((N, nu, nx), X0.dtype)
-    # Whole-solve fused engine (ops/pallas/mega_logddp.py): qualifying
-    # box-constrained quadratic fleets run the complete relaxed-barrier
-    # solve as ONE Pallas kernel for vmapped TPU f32 batches.
-    from cddp_tpu.ops.pallas import mega_ipddp, mega_logddp
-
-    if options.solve_engine == "fused" or (
-        options.solve_engine == "auto"
-        and mega_logddp.mega_log_eligible(problem, options)
-        and mega_ipddp.problem_consts_concrete(problem)
-    ):
-        if options.solve_engine == "fused":
-            assert mega_logddp.mega_log_eligible(problem, options), (
-                "solve_engine='fused' requires a mega-eligible LogDDP "
-                "problem: registered continuous lane model, quadratic "
-                "objective, box-only path constraints, no terminal "
-                "constraints, iLQR sequential backward, sequential line "
-                "search, default driver features, and a horizon small "
-                "enough to fit VMEM"
-            )
-        return _solve_mega(problem, options, X0, U0, k0, K0)
     return _solve(problem, options, X0, U0, k0, K0)

@@ -1,6 +1,6 @@
 """MSIPDDP — multiple-shooting interior-point DDP.
 
-TPU-native rebuild of ``src/cddp_core/msipddp_solver.cpp``: defect constraints
+JAX rebuild of ``src/cddp_core/msipddp_solver.cpp``: defect constraints
 d_t = f(x_t, u_t) - x_{t+1} with explicit costates Lambda. Deltas vs IPDDP:
 
 - defects enter the backward pass through the drift term V_x + V_xx d
@@ -274,7 +274,7 @@ def _backward_pass(problem, options, stk, X, U, Y, S, G, F, Lambda, mu, reg):
         # per-step gains by re-evaluating the condensed step math at V_{t+1}
         # in a second vmap. "sharded" runs the scan horizon-sharded over a
         # device mesh (parallel/time_parallel.py: one all_gather of one
-        # value element per device on ICI). Like IPDDP's parallel backend,
+        # value element per device). Like IPDDP's parallel backend,
         # the associative elements propagate through the REGULARIZED R, an
         # O(reg) difference from the sequential fold (parity as reg -> 0).
         ys_inv_a = Y / S
@@ -553,8 +553,7 @@ def _update_barrier(problem, options, stk, c: _Carry, fp_success, has_path: bool
 
 def _initialize(problem, options, stk, X0, U0, warm, dtype):
     """Cold/warm seed state (msipddp_solver.cpp:192-265 + 644-707).
-    Factored out of :func:`_solve` so the whole-solve fused engine
-    (ops/pallas/mega_msipddp.py) shares the exact seed. Returns
+    Factored out of :func:`_solve`. Returns
     ``(X, U, Y, S, G, F, Lambda, mu0)``."""
     has_path = bool(stk)
     nx, N = problem.state_dim, problem.horizon
@@ -642,64 +641,9 @@ def _solve(problem: Problem, options: CDDPOptions, X0, U0, warm):
     return _drive(problem, options, X, U, Y, S, G, F, Lambda, mu0, ku0, Ku0)
 
 
-@base.with_matmul_precision
-def _solve_mega(problem: Problem, options: CDDPOptions, X0, U0, warm):
-    """Whole-solve fused engine entry (ops/pallas/mega_msipddp.py): run
-    :func:`_initialize` in XLA, then the batch-aware whole-solve op (the
-    XLA :func:`_drive` per unbatched instance, ONE Pallas kernel for
-    vmapped TPU f32 fleets)."""
-    from cddp_tpu.ops.pallas.mega_msipddp import msipddp_solve_op
-
-    stk = PathStacker(problem)
-    has_path = bool(stk)
-    nx, nu, N = problem.state_dim, problem.control_dim, problem.horizon
-    dtype = jnp.asarray(problem.x0).dtype
-    X, U, Y, S, G, F, Lambda, mu0 = _initialize(
-        problem, options, stk, X0, U0, warm, dtype
-    )
-    ku0 = jnp.zeros((N, nu), dtype)
-    Ku0 = jnp.zeros((N, nu, nx), dtype)
-    if warm is not None:
-        ku0, Ku0 = warm.k_u, warm.K_u
-
-    op = msipddp_solve_op(problem, options)
-    (Xs, Us, ks, Ks, Ys, Ss, Fs, Lam, cost, inf_pr, inf_du, inf_comp, mu,
-     reg, alpha_pr, iters, status) = op(
-        problem.x0, X, U, Y, S, F, Lambda, jnp.asarray(mu0, dtype), ku0,
-        Ku0,
-    )
-    time_points = jnp.arange(N + 1, dtype=dtype) * problem.timestep
-    state = MSIPDDPSolverState(
-        k_u=ks, K_u=Ks, Y=Ys, S=Ss, Lambda=Lam, F=Fs,
-    )
-    sol = Solution(
-        solver_name="MSIPDDP",
-        status_code=status,
-        iterations_completed=iters,
-        final_objective=cost,
-        final_step_length=alpha_pr,
-        final_regularization=reg,
-        time_points=time_points,
-        state_trajectory=Xs,
-        control_trajectory=Us,
-        feedback_gains=Ks,
-        feedforward_gains=ks,
-        dual_trajectories=stk.split(Ys) if has_path else None,
-        slack_trajectories=stk.split(Ss) if has_path else None,
-        costate_trajectory=Lam,
-        barrier_mu=mu,
-        inf_pr=inf_pr,
-        inf_du=inf_du,
-        inf_comp=inf_comp,
-        history=None,
-    )
-    return sol, state
-
-
 def _drive(problem, options, X, U, Y, S, G, F, Lambda, mu0, ku0, Ku0):
-    """Iteration loop + solution assembly on a prepared seed state
-    (factored from :func:`_solve` for the whole-solve op's per-instance
-    scan path, the ipddp._drive pattern)."""
+    """Iteration loop + solution assembly on the seed state
+    :func:`_initialize` prepares."""
     stk = PathStacker(problem)
     has_path = bool(stk)
     nx, nu, N = problem.state_dim, problem.control_dim, problem.horizon
@@ -979,30 +923,7 @@ def solve(
 
         X0 = _rollout(problem.model, problem.x0, U0, problem.timestep)
     warm = state if options.warm_start else None
-    # Whole-solve fused engine (ops/pallas/mega_msipddp.py): qualifying
-    # box-constrained quadratic problems run the complete multiple-
-    # shooting interior-point solve as a batch-aware op — the XLA _drive
-    # driver per unbatched instance, ONE Pallas kernel for vmapped TPU
-    # f32 fleets.
-    from cddp_tpu.ops.pallas import mega_ipddp, mega_msipddp
-
-    if options.solve_engine == "fused" or (
-        options.solve_engine == "auto"
-        and mega_msipddp.mega_ms_eligible(problem, options)
-        and mega_ipddp.problem_consts_concrete(problem)
-    ):
-        if options.solve_engine == "fused":
-            assert mega_msipddp.mega_ms_eligible(problem, options), (
-                "solve_engine='fused' requires a mega-eligible MSIPDDP "
-                "problem: registered continuous lane model, quadratic "
-                "objective, box-only path constraints, no terminal "
-                "constraints, iLQR sequential backward, sequential line "
-                "search, default driver features, and a horizon small "
-                "enough to fit VMEM"
-            )
-        sol, new_state = _solve_mega(problem, options, X0, U0, warm)
-    else:
-        sol, new_state = _solve(problem, options, X0, U0, warm)
+    sol, new_state = _solve(problem, options, X0, U0, warm)
     if return_state:
         return sol, new_state
     return sol

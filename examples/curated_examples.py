@@ -140,6 +140,9 @@ DEMOS = {
 
 
 if __name__ == "__main__":
+    from cddp_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     names = list(DEMOS) if which == "all" else [which]
     for name in names:

@@ -130,6 +130,9 @@ DEMOS = {"ioc": demo_ioc, "sysid": demo_sysid, "bound": demo_bound}
 
 
 if __name__ == "__main__":
+    from cddp_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     for name, fn in DEMOS.items():
         if which in (name, "all"):

@@ -8,8 +8,7 @@ explicit pytree, checkpointed with cddp_tpu.utils.checkpoint so a
 controller process can restart mid-mission.
 
 Run: ``JAX_PLATFORMS=cpu PYTHONPATH=. python examples/mpc_service.py``
-(or on a TPU chip for the real latency numbers; quadrotor station-keeping
-tick is ~80 ms on one v5e with the parallel Riccati backend).
+(or without ``JAX_PLATFORMS`` on a GPU host for device latency numbers).
 """
 
 from __future__ import annotations
@@ -107,7 +106,13 @@ def main(ticks=10, ckpt_path=None):
 
 
 if __name__ == "__main__":
+    from cddp_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
+    import os
     import sys
+    import tempfile
 
     main(ticks=int(sys.argv[1]) if len(sys.argv) > 1 else 10,
-         ckpt_path="/tmp/mpc_service_state.npz")
+         ckpt_path=os.path.join(tempfile.gettempdir(),
+                                "mpc_service_state.npz"))

@@ -1,4 +1,4 @@
-"""MPCC racing-line tracking — TPU-native rebuild of
+"""MPCC racing-line tracking — JAX rebuild of
 ``examples/ipddp_mpcc_rc.py`` (AIRCoM-style kinematic MPCC).
 
 Components (reference line cites in docstrings):
@@ -17,7 +17,7 @@ Components (reference line cites in docstrings):
 - :func:`run_mpc` — closed-loop receding-horizon loop, cold-seeded per tick
   (ipddp_mpcc_rc.py:649, rationale :42-47), jit-compiled once; and
   :func:`batched_mpc_step` — the same tick vmapped over a fleet of cars
-  (the BASELINE.json "vmap-batched 1k instances" configuration).
+  (the vmap-batched 1k-instance configuration).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from cddp_tpu.utils import struct
 
 import cddp_tpu as ct
 from cddp_tpu.costs.objective import Objective
@@ -64,11 +64,9 @@ class Track(struct.PyTreeNode):
     # matrix (2K+1, 8) for [x, y, heading_residual, curvature, v_ref, 0,0,0]
     # against the basis [1, cos(k theta), sin(k theta)], theta = 2 pi s / L.
     # heading(s) = 2 pi s / L + residual(s) (one net turn per closed lap).
-    # interpolate() is then pure math (cos/sin + one tiny matmul) with ZERO
-    # gathers: jnp.interp's searchsorted costs ~4.6 ms per field sweep over
-    # a (1024, 21) fleet on v5e and a uniform-grid row gather is no better
-    # (TPU gathers serialize); the Fourier evaluation is ~microseconds and
-    # MXU/VPU-friendly.
+    # interpolate() is then pure math (cos/sin + one tiny matmul) with no
+    # gathers: no searchsorted and no data-dependent row lookups inside the
+    # vmapped solve.
     fourier: jax.Array
 
     def wrap_progress(self, progress):
@@ -104,9 +102,9 @@ class LocalTrack(struct.PyTreeNode):
     progress window one MPC solve can reach.
 
     The full :class:`Track` evaluates a 129-term (K=64) Fourier basis —
-    ~64 cos/sin pairs per reference lookup, which profiling showed is 7.1 of
-    9.9 ms per fleet IPDDP iteration at B=1024 (the derivative sweeps pay it
-    once per Gauss-Newton Jacobian column). One solve only ever reads
+    ~64 cos/sin pairs per reference lookup, which dominates a fleet IPDDP
+    iteration (the derivative sweeps pay it once per Gauss-Newton Jacobian
+    column). One solve only ever reads
     ``theta`` within [theta0, theta0 + v_theta_max*H*dt] (~2.2 m of a ~6 m
     lap), so each tick refits that window with an M-coefficient Chebyshev
     series evaluated by the Clenshaw recurrence — pure fused multiply-adds,
@@ -334,16 +332,14 @@ class MpccConfig:
     # Track-reference engine inside the solve: "fourier" evaluates the full
     # 129-term periodic fit every lookup; "local" refits a per-tick
     # Chebyshev window (LocalTrack) and evaluates it by Clenshaw — no trig
-    # in the hot path (~1.9x fleet tick rate at B=1024, same trajectories
-    # to ~1e-3).
+    # in the hot path (same trajectories to ~1e-3).
     track_eval: str = "fourier"
     local_coeffs: int = 32
     # Matmul precision for the fleet solve. The library-wide default
-    # ("highest", exact f32) buys tight KKT certificates but costs the
-    # B=1024 fleet ~41% (6.8k vs 11.5k ticks/s measured): at fleet batch
-    # sizes the vmapped nx=7 matmuls DO saturate the MXU, where bf16-input
-    # passes are ~3x cheaper. A 15-iteration MPC tick needs feasible
-    # controls, not a 1e-4 certificate, so the fleet runs "default".
+    # ("highest", exact f32) buys tight KKT certificates; a 15-iteration
+    # MPC tick needs feasible controls, not a 1e-4 certificate, so the
+    # fleet runs "default" (TF32 matmuls on an NVIDIA GPU). Whether that
+    # pays on the GPU is not measured yet.
     matmul_precision: str = "default"
 
 
@@ -402,227 +398,6 @@ class MpccObjective(ct.ResidualObjective):
 
     def terminal_cost_extra(self, x):
         return -self.cfg.w_terminal_progress * x[IDX_THETA]
-
-
-# --- fused-forward lane registration ----------------------------------------
-# The bicycle dynamics and the Clenshaw-window MPCC cost register with the
-# public lane registries (cddp_tpu.ops.pallas.ip_rollout), so vmap-batched
-# fleet solves run the whole interior-point forward rollout as one Pallas
-# kernel. The registries are the framework's extension point — this file is
-# deliberately a *user* of that API, not library code.
-
-
-def _bicycle7_lane(x, u, p):
-    wheelbase, latch_dt = p[0], p[1]
-    psi = x[2]
-    inv_dt = 1.0 / latch_dt
-    return [
-        u[0] * jnp.cos(psi),
-        u[0] * jnp.sin(psi),
-        u[0] * jnp.tan(u[1]) / wheelbase,
-        u[2],
-        (u[0] - x[4]) * inv_dt,
-        (u[1] - x[5]) * inv_dt,
-        (u[2] - x[6]) * inv_dt,
-    ]
-
-
-def _mpcc_cost_factory(obj):
-    """Cost lane for MpccObjective over a LocalTrack window: Clenshaw track
-    lookup + the 13 running residuals, all on lane vectors. Fourier-track
-    objectives return None (trig-heavy; the scan path is the right engine
-    there anyway — fleet solves use LocalTrack)."""
-    trk = obj.track
-    if not isinstance(trk, LocalTrack):
-        return None
-    cfg = obj.cfg
-    M = int(trk.coeffs.shape[0])
-    params = jnp.concatenate([
-        jnp.asarray(trk.coeffs).reshape(-1),
-        jnp.asarray(trk.center).reshape(1),
-        jnp.asarray(trk.halfwidth).reshape(1),
-        jnp.asarray(trk.width).reshape(1),
-    ])
-    two_pi = 2.0 * jnp.pi
-
-    def lane_f(x, u, p, t_idx):
-        center, halfwidth, width = p[5 * M], p[5 * M + 1], p[5 * M + 2]
-        t = jnp.clip((x[IDX_THETA] - center) / halfwidth, -1.0, 1.0)
-        zero = jnp.zeros_like(t)
-        b1 = [zero] * 5
-        b2 = [zero] * 5
-        t2 = 2.0 * t
-        for k in range(M - 1, 0, -1):
-            b1, b2 = [t2 * b1[f] - b2[f] + p[5 * k + f] for f in range(5)], b1
-        vals = [t * b1[f] - b2[f] + p[f] for f in range(5)]
-        rx, ry, heading, _curv, v_ref = vals
-        sin_h = jnp.sin(heading)
-        cos_h = jnp.cos(heading)
-        dx = x[IDX_X] - rx
-        dy = x[IDX_Y] - ry
-        e_c = -sin_h * dx + cos_h * dy
-        e_l = cos_h * dx + sin_h * dy
-        a = x[IDX_PSI] - heading
-        e_yaw = a - two_pi * jnp.floor((a + jnp.pi) / two_pi)
-        v_prev, delta_prev, v_theta_prev = x[4], x[5], x[6]
-        v_w, delta, v_theta = u[0], u[1], u[2]
-        v_target = jnp.maximum(v_ref, cfg.reference_speed)
-        boundary = jnp.maximum(
-            0.0, jnp.abs(e_c) - cfg.boundary_band * width
-        )
-        w = lambda wt: cfg.dt * wt  # squared sqrt(dt*w) residual scale
-        J = (
-            w(cfg.w_contour) * e_c * e_c
-            + w(cfg.w_lag) * e_l * e_l
-            + w(cfg.w_speed) * (v_theta - v_target) ** 2
-            + w(cfg.w_speed_w) * (v_w - v_target) ** 2
-            + w(cfg.w_control) * (v_w * v_w + delta * delta)
-            + w(cfg.w_x) * dx * dx
-            + w(cfg.w_y) * dy * dy
-            + w(cfg.w_yaw) * e_yaw * e_yaw
-            + w(cfg.w_dv) * (v_w - v_prev) ** 2
-            + w(cfg.w_ddelta) * (delta - delta_prev) ** 2
-            + w(cfg.w_dv_theta) * (v_theta - v_theta_prev) ** 2
-            + w(cfg.w_boundary) * boundary * boundary
-        )
-        return J
-
-    return ((M, cfg), params, lane_f)
-
-
-def _mpcc_track_params(obj):
-    """LocalTrack cost-parameter vector shared by the fused-forward and
-    whole-solve lanes: coeffs (M, 5) row-major, then center/halfwidth/
-    width (n_cp = 5M + 3). vmapped over leaf-batched objectives for
-    per-car track windows in a fleet."""
-    trk = obj.track
-    return jnp.concatenate([
-        jnp.asarray(trk.coeffs).reshape(-1),
-        jnp.asarray(trk.center).reshape(1),
-        jnp.asarray(trk.halfwidth).reshape(1),
-        jnp.asarray(trk.width).reshape(1),
-    ])
-
-
-def _mpcc_gn_factory(obj):
-    """Whole-solve (mega) Gauss-Newton residual lanes for MpccObjective
-    over a LocalTrack window — the 13 running residuals of
-    :meth:`MpccObjective.running_residuals` (ipddp_mpcc_rc.py:333-436) and
-    the 2 terminal contour/lag residuals + affine progress bonus, on lane
-    scalars with the Clenshaw track lookup of ``_mpcc_cost_factory``.
-    Residual Jacobians come from jax.jvp inside the kernel (GN 2 J^T J,
-    exactly the ResidualObjective derivative contract). Fourier-track
-    objectives decline (fleet solves use LocalTrack)."""
-    from cddp_tpu.ops.pallas.mega_ipddp import GnCostEntry, GnCostSpec
-
-    trk = obj.track
-    if not isinstance(trk, LocalTrack):
-        return None
-    cfg = obj.cfg
-    M = int(trk.coeffs.shape[0])
-    two_pi = 2.0 * jnp.pi
-
-    def track_lanes(x, p):
-        """(e_c, e_l, e_yaw, v_ref, dx, dy, width) at lane state x.
-
-        Scalar literals are broadcast to lanes before min/max ops: under
-        jax_enable_x64 the jvp of max/clip instantiates the literal
-        operand's zero tangent as a weak-f64 constant, which the Mosaic
-        TPU lowering cannot cast back to f32 (the STATUS r3 pitfall list;
-        these lanes are differentiated in-kernel by the GN derivs)."""
-        center, halfwidth, width = p[5 * M], p[5 * M + 1], p[5 * M + 2]
-        zero = jnp.zeros_like(x[IDX_THETA])
-        one = zero + 1.0
-        tt = (x[IDX_THETA] - center) / halfwidth
-        t = jnp.minimum(jnp.maximum(tt, -one), one)  # == clip(tt, -1, 1)
-        b1 = [zero] * 5
-        b2 = [zero] * 5
-        t2 = 2.0 * t
-        for k in range(M - 1, 0, -1):
-            b1, b2 = [t2 * b1[f] - b2[f] + p[5 * k + f] for f in range(5)], b1
-        vals = [t * b1[f] - b2[f] + p[f] for f in range(5)]
-        rx, ry, heading, _curv, v_ref = vals
-        sin_h = jnp.sin(heading)
-        cos_h = jnp.cos(heading)
-        dx = x[IDX_X] - rx
-        dy = x[IDX_Y] - ry
-        e_c = -sin_h * dx + cos_h * dy
-        e_l = cos_h * dx + sin_h * dy
-        a = x[IDX_PSI] - heading
-        e_yaw = a - two_pi * jnp.floor((a + jnp.pi) / two_pi)
-        return e_c, e_l, e_yaw, v_ref, dx, dy, width
-
-    sq = lambda w: (cfg.dt * w) ** 0.5  # python-float sqrt scale
-
-    def res_f(x, u, p, t_idx):
-        e_c, e_l, e_yaw, v_ref, dx, dy, width = track_lanes(x, p)
-        v_prev, delta_prev, v_theta_prev = x[4], x[5], x[6]
-        v_w, delta, v_theta = u[0], u[1], u[2]
-        zero = jnp.zeros_like(e_c)
-        v_target = jnp.maximum(v_ref, zero + cfg.reference_speed)
-        # where-form |e_c|: value-identical to jnp.abs; its jvp is a
-        # select instead of sign() (whose Mosaic lowering materializes
-        # f64 constants under x64 — the STATUS r3 pitfall list), and the
-        # subgradient difference at e_c == 0 is annihilated by the outer
-        # max (|0| - band*width < 0 there). Literal max operands are
-        # lane-broadcast for the same jvp-under-x64 reason (track_lanes).
-        abs_ec = jnp.where(e_c >= 0.0, e_c, -e_c)
-        boundary = jnp.maximum(
-            zero, abs_ec - cfg.boundary_band * width
-        )
-        return [
-            sq(cfg.w_contour) * e_c,
-            sq(cfg.w_lag) * e_l,
-            sq(cfg.w_speed) * (v_theta - v_target),
-            sq(cfg.w_speed_w) * (v_w - v_target),
-            sq(cfg.w_control) * v_w,
-            sq(cfg.w_control) * delta,
-            sq(cfg.w_x) * dx,
-            sq(cfg.w_y) * dy,
-            sq(cfg.w_yaw) * e_yaw,
-            sq(cfg.w_dv) * (v_w - v_prev),
-            sq(cfg.w_ddelta) * (delta - delta_prev),
-            sq(cfg.w_dv_theta) * (v_theta - v_theta_prev),
-            sq(cfg.w_boundary) * boundary,
-        ]
-
-    w_T = cfg.w_terminal ** 0.5
-
-    def tres_f(x, p):
-        e_c, e_l, _, _, _, _, _ = track_lanes(x, p)
-        return [w_T * e_c, w_T * e_l]
-
-    def textra_f(x, p):
-        # Affine progress bonus (terminal_cost_extra) — gradient folds via
-        # jvp, Hessian exactly zero.
-        return -cfg.w_terminal_progress * x[IDX_THETA]
-
-    spec = GnCostSpec(
-        n_cp=5 * M + 3, n_res=13, n_tres=2,
-        res_f=res_f, tres_f=tres_f, textra_f=textra_f,
-    )
-    return GnCostEntry(
-        static_key=("mpcc_gn", M, cfg), cp_fn=_mpcc_track_params, spec=spec,
-    )
-
-
-def _register_lanes():
-    from cddp_tpu.ops.pallas.ip_rollout import (
-        register_cost_lane,
-        register_model_lane,
-    )
-    from cddp_tpu.ops.pallas.mega_ipddp import register_gn_cost_lane
-
-    register_model_lane(
-        KinematicBicycle7, 2,
-        lambda m: jnp.stack([jnp.asarray(m.wheelbase), jnp.asarray(m.dt)]),
-        _bicycle7_lane,
-    )
-    register_cost_lane(MpccObjective, _mpcc_cost_factory)
-    register_gn_cost_lane(MpccObjective, _mpcc_gn_factory)
-
-
-_register_lanes()
 
 
 def initial_state(track: Track, cfg: MpccConfig):
@@ -742,7 +517,7 @@ def batched_mpcc_step_costs(track: Track, cfg: MpccConfig, x_batch):
 
 def batched_mpc_step(track: Track, cfg: MpccConfig, x_batch):
     """Fleet MPC tick: vmap of mpc_tick over (B, 7) states — the
-    BASELINE.json vmap-batched MPCC configuration."""
+    vmap-batched MPCC configuration."""
     def one(x):
         u, sol = mpc_tick(track, cfg, x)
         return u, sol.final_objective, sol.iterations_completed
@@ -753,7 +528,7 @@ def batched_mpc_step(track: Track, cfg: MpccConfig, x_batch):
 def mpc_tick_warm(track: Track, cfg: MpccConfig, x_current, U_prev, state):
     """Warm-started MPC tick: shifts the previous control plan one step and
     threads the IPDDP dual/slack/gain state between ticks (the
-    ipddp_solver.cpp:652-817 warm-start path — a TPU-side extension; the
+    ipddp_solver.cpp:652-817 warm-start path — an extension; the
     reference's MPCC demo cold-seeds, ipddp_mpcc_rc.py:42-47). Pure and
     jittable; vmap (x, U_prev, state) over a fleet.
 

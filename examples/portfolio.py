@@ -234,6 +234,9 @@ DEMOS = {
 }
 
 if __name__ == "__main__":
+    from cddp_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--demo", default="all", choices=list(DEMOS) + ["all"])
     ap.add_argument("--gif", action="store_true")

@@ -85,6 +85,9 @@ def attitude():
 DEMOS = {"rendezvous": rendezvous, "attitude": attitude}
 
 if __name__ == "__main__":
+    from cddp_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which != "all" and which not in DEMOS:
         raise SystemExit(

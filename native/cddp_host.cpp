@@ -1,7 +1,7 @@
 // cddp-tpu native host runtime.
 //
 // C++ counterpart of the framework's CPU-side numerics, filling the role the
-// reference's C++ core plays outside the TPU compute path:
+// reference's C++ core plays outside the accelerator compute path:
 //
 //  - an independent double-precision BoxQP (projected-Newton active-set,
 //    same algorithm family as src/cddp_core/boxqp.cpp) used as a

@@ -167,8 +167,8 @@ def test_options_defaults():
     assert tc.segment_length == 5 and tc.dual_var_init_scale == 1e-1
     assert o.msipddp.segment_length == 5
     assert o.msipddp.rollout_type == "nonlinear"
-    # JAX-only numerics knob: exact-f32 matmuls by default (the MXU's bf16
-    # default floors on-chip KKT certificates near 1e-3; see options.py).
+    # JAX-only numerics knob: exact-f32 matmuls by default (a rounded-input
+    # default such as TF32 floors KKT certificates; see options.py).
     assert o.matmul_precision == "highest"
     assert o.box_qp.max_iterations == 100
     assert o.box_qp.armijo_constant == 0.1

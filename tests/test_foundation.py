@@ -199,11 +199,10 @@ def test_constraint_replacement_dual_dim_bookkeeping():
 
 def test_matmul_precision_reaches_traced_dots():
     """CDDPOptions.matmul_precision plumbs jax.default_matmul_precision
-    around solver tracing (base.with_matmul_precision). On TPU the MXU's
-    default bf16 input precision floors the achievable KKT residual near
-    1e-3 (quadrotor Qf=500: true f64-measured inf_du of the converged f32
-    iterate stalls at 1.4e-3 under "default" vs 9.1e-5 under "highest"),
-    so the default must be "highest" and must actually reach the lowered
+    around solver tracing (base.with_matmul_precision). An accelerator's
+    default precision may round f32 matmul inputs (TF32 on an NVIDIA GPU),
+    which floors the achievable KKT residual on badly-scaled problems, so
+    the default must be "highest" and must actually reach the lowered
     program's dot_generals. Pure trace/lower — no compile."""
     import cddp_tpu as ct
     from cddp_tpu.solvers import clddp
@@ -272,7 +271,7 @@ def test_solve_dtype_canonicalization_under_x64():
 def test_engine_option_validation():
     """Typo'd engine selectors must error at solve entry instead of silently
     running the other engine (each dispatch gate tests one specific value,
-    e.g. forward_engine != "auto" -> scan)."""
+    e.g. solve_engine != "xla" -> kernel dispatch)."""
     import dataclasses
 
     import cddp_tpu as ct
@@ -282,8 +281,7 @@ def test_engine_option_validation():
     validate_engine_options(opts)  # defaults are valid
 
     for path, bad in [
-        ("backward_engine", "pallas"),
-        ("ipddp.forward_engine", "kernel"),
+        ("solve_engine", "pallas"),
         ("ipddp.lqr_backend", "assoc"),
         ("log_barrier.lqr_backend", "sharded"),
         ("msipddp.lqr_backend", "distributed"),

@@ -1,6 +1,6 @@
-"""Whole-solve fused CLDDP kernel (ops/pallas/mega_clddp.py) vs the XLA
-driver — interpret-mode parity, derivative lane functions vs AD, and the
-dispatch plumbing."""
+"""Whole-solve fused CLDDP kernel (ops/pallas/mega_clddp.py, Pallas Triton
+route) vs the XLA driver — interpret-mode parity, derivative lane
+functions vs AD, the batch-first wrapper and the dispatch plumbing."""
 
 import jax
 import jax.numpy as jnp
@@ -91,7 +91,7 @@ class TestDerivLanes:
         (HCW(), "HCW", 6, 3),
     ])
     def test_analytic_matches_ad(self, model, kind, nx, nu):
-        from cddp_tpu.ops.pallas.rollout import _REGISTRY
+        from cddp_tpu.ops.pallas.lanes import _REGISTRY
 
         entry = _REGISTRY[kind]
         param_fn = entry[1]
@@ -115,7 +115,7 @@ class TestDerivLanes:
                                        rtol=1e-12, atol=1e-12)
 
     def test_jvp_fallback_matches_ad(self):
-        from cddp_tpu.ops.pallas.rollout import _REGISTRY
+        from cddp_tpu.ops.pallas.lanes import _REGISTRY
 
         model = CartPole()
         entry = _REGISTRY["CartPole"]
@@ -315,76 +315,6 @@ class TestMegaEdgeCases:
         _assert_solutions_match(got, want)
 
 
-class TestTpuLowering:
-    """Mosaic lowering for the TPU target via jax.export — catches kernel
-    legalization regressions without TPU hardware (the pallas_call is
-    lowered and serialized for platforms=['tpu'] on any host)."""
-
-    @pytest.mark.slow
-    @pytest.mark.parametrize("model,nx,nu,tracking,parallel", [
-        (Unicycle(), 3, 2, False, False),  # analytic derivs, headline shape
-        (Unicycle(), 3, 2, True, False),   # tracking variant
-        (Unicycle(), 3, 2, False, True),   # best-merit ladder variant
-        (CartPole(), 4, 1, False, False),  # analytic derivs, 4-state
-    ])
-    def test_export_for_tpu(self, model, nx, nu, tracking, parallel):
-        dt, N, B = 0.05, 20, 1024
-        goal = np.zeros(nx, np.float32)
-        refs = (np.tile(goal, (N, 1)).astype(np.float32)
-                if tracking else None)
-        obj = ct.quadratic_objective(
-            Q=np.eye(nx, dtype=np.float32) * 0.1,
-            R=np.eye(nu, dtype=np.float32) * 0.05,
-            Qf=np.eye(nx, dtype=np.float32) * 100.0,
-            reference_state=goal, timestep=dt, reference_states=refs,
-        )
-        prob = ct.problem(
-            model, obj, np.zeros(nx, np.float32), N, dt,
-            constraints={"ControlConstraint": ct.ControlConstraint(
-                lower=np.full(nu, -2.0, np.float32),
-                upper=np.full(nu, 2.0, np.float32))},
-        )
-        opts = ct.CDDPOptions(max_iterations=10, tolerance=1e-4,
-                              enable_parallel=parallel)
-        fused = mega_clddp.build_fused_solve(prob, opts)
-        f32 = jnp.float32
-        args = (jnp.zeros((B, nx), f32), jnp.zeros((B, N + 1, nx), f32),
-                jnp.zeros((B, N, nu), f32), jnp.zeros((B, N, nu), f32),
-                jnp.zeros((B, N, nu, nx), f32))
-        exp = jax.export.export(jax.jit(fused), platforms=["tpu"])(*args)
-        assert len(exp.mlir_module_serialized) > 0
-
-    @pytest.mark.slow
-    def test_export_jvp_deriv_model_for_tpu(self):
-        # A model with NO analytic derivative lane exercises the in-kernel
-        # jax.jvp fallback through the Mosaic lowering.
-        from cddp_tpu.models import Acrobot
-
-        assert "Acrobot" not in mega_clddp._DERIV_REGISTRY
-        dt, N, B = 0.05, 10, 1024
-        nx, nu = 4, 1
-        obj = ct.quadratic_objective(
-            Q=np.eye(nx, dtype=np.float32) * 0.1,
-            R=np.eye(nu, dtype=np.float32) * 0.05,
-            Qf=np.eye(nx, dtype=np.float32) * 100.0,
-            reference_state=np.zeros(nx, np.float32), timestep=dt,
-        )
-        prob = ct.problem(
-            Acrobot(), obj, np.zeros(nx, np.float32), N, dt,
-            constraints={"ControlConstraint": ct.ControlConstraint(
-                lower=np.full(nu, -5.0, np.float32),
-                upper=np.full(nu, 5.0, np.float32))},
-        )
-        opts = ct.CDDPOptions(max_iterations=5)
-        fused = mega_clddp.build_fused_solve(prob, opts)
-        f32 = jnp.float32
-        args = (jnp.zeros((B, nx), f32), jnp.zeros((B, N + 1, nx), f32),
-                jnp.zeros((B, N, nu), f32), jnp.zeros((B, N, nu), f32),
-                jnp.zeros((B, N, nu, nx), f32))
-        exp = jax.export.export(jax.jit(fused), platforms=["tpu"])(*args)
-        assert len(exp.mlir_module_serialized) > 0
-
-
 class TestDispatch:
     def test_warm_trajectory_seed_parity(self):
         # A non-trivial warm-start X0 (row 0 = x0, as Problem.
@@ -419,16 +349,14 @@ class TestDispatch:
         want = jax.vmap(one)(x0b, X0, U0, k0, K0)
         _assert_solutions_match(got, want)
 
-    def test_vmem_gate(self):
+    def test_no_horizon_gate(self):
+        # Workspace lives in device memory, so long horizons stay eligible.
         prob = _box_problem(Unicycle(), 3, 2, goal=[1.0, 1.0, 0.0],
                             x0=[0.0, 0.0, 0.0], lower=-1.0, upper=1.0,
                             horizon=20)
         opts = ct.CDDPOptions(max_iterations=5)
         assert mega_clddp.mega_eligible(prob, opts)
-        big = prob.replace(horizon=200)
-        assert mega_clddp._vmem_estimate_bytes(big) > \
-            mega_clddp._VMEM_BUDGET_BYTES
-        assert not mega_clddp.mega_eligible(big, opts)
+        assert mega_clddp.mega_eligible(prob.replace(horizon=500), opts)
 
     def test_timestep_tracer_dispatch_gate(self):
         # Unbatched jit tracers are safe to close over (the op consumes
@@ -502,3 +430,78 @@ class TestDispatch:
                 np.asarray(sol.control_trajectory)[i],
                 np.asarray(ref.control_trajectory), rtol=1e-9, atol=1e-10,
             )
+
+
+class TestTritonWrapper:
+    """The batch-first wrapper around the Triton pallas_call: padding to
+    whole tiles, the batch-last layout, the dispatch predicate and the
+    ``solve_engine="fused"`` contract."""
+
+    def _prob(self, dtype=np.float64):
+        return _box_problem(Unicycle(), 3, 2, goal=[1.0, 1.0, 0.0],
+                            x0=[0.0, 0.0, 0.0], lower=-1.0, upper=1.0,
+                            horizon=8)
+
+    def _seed(self, x0b):
+        B, N = x0b.shape[0], 8
+        return (x0b, jnp.broadcast_to(x0b[:, None], (B, N + 1, 3)),
+                jnp.zeros((B, N, 2), x0b.dtype),
+                jnp.zeros((B, N, 2), x0b.dtype),
+                jnp.zeros((B, N, 2, 3), x0b.dtype))
+
+    def test_padding_and_layout(self):
+        # 11 instances in tiles of 8 (one padded tile) and in one tile of
+        # 16: same per-instance answers, in the caller's order.
+        prob = self._prob()
+        opts = ct.CDDPOptions(max_iterations=4, tolerance=1e-4)
+        rng = np.random.default_rng(21)
+        x0b = jnp.asarray(rng.uniform(-0.4, 0.4, size=(11, 3)))
+        a = mega_clddp.build_fused_solve(prob, opts, interpret=True,
+                                         tile_b=8)(*self._seed(x0b))
+        b = mega_clddp.build_fused_solve(prob, opts, interpret=True,
+                                         tile_b=16)(*self._seed(x0b))
+        perm = np.asarray(rng.permutation(11))
+        c = mega_clddp.build_fused_solve(prob, opts, interpret=True,
+                                         tile_b=8)(*self._seed(x0b[perm]))
+        assert a[0].shape == (11, 9, 3) and a[3].shape == (11, 8, 2, 3)
+        for u, v, w in zip(a, b, c):
+            np.testing.assert_array_equal(np.asarray(u), np.asarray(v))
+            np.testing.assert_array_equal(np.asarray(u)[perm], np.asarray(w))
+
+    def test_tile_must_be_power_of_two(self):
+        prob = self._prob()
+        fused = mega_clddp.build_fused_solve(prob, ct.CDDPOptions(),
+                                             interpret=True, tile_b=96)
+        with pytest.raises(ValueError, match="power of two"):
+            fused(*self._seed(jnp.zeros((3, 3))))
+
+    @pytest.mark.parametrize("backend,dtype,kernel", [
+        ("gpu", np.float32, True),
+        ("cpu", np.float32, False),
+        ("gpu", np.float64, False),
+    ])
+    def test_dispatch(self, monkeypatch, backend, dtype, kernel):
+        """The traced fleet program holds the Triton kernel only for GPU
+        float32 fleets (traced, not compiled: this host has no GPU)."""
+        from cddp_tpu.parallel.batch import batched_solve
+
+        monkeypatch.setattr(jax, "default_backend", lambda: backend)
+        prob = self._prob()
+        prob = jax.tree.map(
+            lambda a: a.astype(dtype) if hasattr(a, "astype") else a, prob)
+        opts = ct.CDDPOptions(max_iterations=4)
+        x0b = jnp.zeros((256, 3), dtype)
+        jaxpr = jax.make_jaxpr(
+            lambda x: batched_solve(prob, x, "CLDDP", opts))(x0b)
+        assert ("pallas_call" in str(jaxpr)) == kernel
+
+    def test_fused_engine_raises_off_gpu(self):
+        prob = self._prob()
+        with pytest.raises(ValueError, match="GPU"):
+            clddp.solve(prob, ct.CDDPOptions(solve_engine="fused"))
+
+    def test_fused_engine_requires_eligibility(self, monkeypatch):
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        prob = self._prob().replace(constraints={})
+        with pytest.raises(ValueError, match="mega-eligible"):
+            clddp.solve(prob, ct.CDDPOptions(solve_engine="fused"))

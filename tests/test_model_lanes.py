@@ -1,11 +1,11 @@
 """Full-zoo lane-function parity: every registered model's lane math vs the
-generic ``discrete_dynamics`` scan (f64), and interpret-mode kernel checks
-for the solve-based lanes (closed-form 2x2/3x3 inverses vs jnp.linalg.solve).
+generic ``discrete_dynamics`` scan (f64), and the in-kernel ``jax.jvp``
+Jacobians of each lane vs the model's AD Jacobians.
 
-The lane registry (ops/pallas/rollout.py) is the TPU-kernel analogue of the
-native engine's model registry; models.base.rollout dispatches through it,
-so this is the correctness gate for every solver's init rollout on these
-models."""
+The lane registry (ops/pallas/lanes.py) is the kernel-side analogue of the
+native engine's model registry: the CLDDP whole-solve kernel
+(ops/pallas/mega_clddp.py) integrates and linearizes every registered
+model through it, so this is the correctness gate for those fleets."""
 
 import jax
 import jax.numpy as jnp
@@ -26,13 +26,12 @@ from cddp_tpu.models import (
     SpacecraftNonlinear,
     SpacecraftTwobody,
     USV3DOF,
-    base,
     euler_attitude,
     mrp_attitude,
     quaternion_attitude,
 )
-from cddp_tpu.ops.pallas import ip_rollout
-from cddp_tpu.ops.pallas.rollout import lane_spec
+from cddp_tpu.ops.pallas.lanes import _integrate_lane, lane_spec
+from cddp_tpu.ops.pallas.mega_clddp import _jvp_deriv
 
 # (factory, x0, control_scale, dt) per model; x0/scales keep short rollouts
 # in each model's sane regime (orbital radii, normalized quaternions, ...).
@@ -85,6 +84,25 @@ def _controls(model, scale, N, key=0):
     return U * scale
 
 
+def _lane_rollout(model, x0, U, dt):
+    """The lane math as a scan: what the whole-solve kernel integrates."""
+    n_params, param_fn, lane_f, *disc = lane_spec(model)
+    p = [v for v in jnp.asarray(param_fn(model), x0.dtype)][:n_params]
+
+    def step(x, u):
+        xs, us = list(x), list(u)
+        if disc and disc[0]:
+            xn = lane_f(xs, us, p, dt)
+        else:
+            xn = _integrate_lane(lane_f, model.integration_type, xs, us, p,
+                                 dt)
+        xn = jnp.stack(xn)
+        return xn, xn
+
+    _, Xt = jax.lax.scan(step, x0, U)
+    return jnp.concatenate([x0[None], Xt], 0)
+
+
 def _plain_rollout(model, x0, U, dt):
     ts = jnp.arange(U.shape[0], dtype=x0.dtype) * dt
 
@@ -99,15 +117,15 @@ def _plain_rollout(model, x0, U, dt):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_lane_rollout_matches_generic_scan(name):
-    """base.rollout (lane-scan dispatch) == discrete_dynamics scan. Bounds
-    are relative per-step: closed-form adjugate inverses and sin/cos-ratio
-    tangents differ from linalg.solve/tan only in final ulps."""
+    """Lane-function scan == discrete_dynamics scan. Bounds are relative
+    per-step: closed-form adjugate inverses and sin/cos-ratio tangents
+    differ from linalg.solve/tan only in final ulps."""
     factory, x0, scale, dt = CASES[name]
     model = factory()
     assert lane_spec(model) is not None, f"{name}: lane not registered"
     x0 = jnp.asarray(x0, jnp.float64)
     U = _controls(model, scale, N=12).astype(jnp.float64)
-    X = np.asarray(base.rollout(model, x0, U, dt))
+    X = np.asarray(_lane_rollout(model, x0, U, dt))
     ref = np.asarray(_plain_rollout(model, x0, U, dt))
     assert np.isfinite(ref).all(), f"{name}: reference rollout diverged"
     scale_ref = np.maximum(np.abs(ref).max(axis=0), 1e-9)
@@ -116,55 +134,42 @@ def test_lane_rollout_matches_generic_scan(name):
 
 
 def test_registry_covers_zoo_except_lti():
-    """Every fixed-dimension zoo model has a lane; only the variable-shape
-    LTISystem (and the CustomSystem escape hatch) keep the generic scan."""
+    """Every fixed-dimension continuous-time zoo model has a lane; only the
+    variable-shape LTISystem, the exact discrete Car map (no integrator to
+    compose with) and the CustomSystem escape hatch keep the generic
+    scan."""
     missing = []
     for regname, cls in MODEL_REGISTRY.items():
         try:
             mdl = cls()
         except TypeError:
             continue  # needs-args classes are covered via CASES factories
-        if lane_spec(mdl) is None and regname != "LTISystem":
+        if lane_spec(mdl) is None and regname not in ("LTISystem", "Car"):
             missing.append(regname)
     assert missing == [], f"zoo models without a lane function: {missing}"
 
 
-@pytest.mark.parametrize(
-    "name", ["acrobot", "usv3dof", "manipulator", "quadrotor-rate",
-             "mrp-attitude", "sc-twobody"]
-)
-def test_kernel_interpret_matches_lane_scan(name):
-    """The open-loop Pallas kernel (interpret mode, f32) == the vmapped lane
-    scan for the solve-based/transcendental lanes."""
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_jvp_jacobians_match_ad(name):
+    """The whole-solve kernel linearizes models without an analytic
+    derivative lane by ``jax.jvp`` of the lane function; those columns must
+    equal the model's own continuous-dynamics Jacobians (f64)."""
     factory, x0, scale, dt = CASES[name]
     model = factory()
-    entry = ip_rollout.model_lane(model)
-    n_mp, mp_fn, model_f, disc = entry
-    lane_key = (type(model), disc, model.integration_type)
-    ip_rollout._OL_LANES_BY_KEY[lane_key] = dict(
-        model_f=model_f, model_discrete=disc,
-        integrator=model.integration_type,
-    )
-    B, N = 3, 7
-    x0 = jnp.asarray(x0, jnp.float32)
-    x0b = jnp.stack([x0 * (1.0 + 0.01 * i) for i in range(B)])
-    Ub = jnp.stack(
-        [_controls(model, scale, N, key=i).astype(jnp.float32)
-         for i in range(B)]
-    )
-    dtv = jnp.full((B,), dt, jnp.float32)
-    mp = jnp.broadcast_to(
-        jnp.asarray(mp_fn(model), jnp.float32)[None], (B, max(n_mp, 1))
-    )
-    out_k = jax.jit(lambda *a: ip_rollout._ol_fused_impl(
-        *a, lane_key=lane_key, interpret=True))(Ub, x0b, dtv, mp)
-    out_s = jax.vmap(
-        lambda u, x: ip_rollout._ol_scan_single(
-            model.state_dim, model.control_dim, model_f, disc,
-            model.integration_type, u, x, jnp.float32(dt), mp[0])
-    )(Ub, x0b)
-    scale_ref = np.maximum(np.abs(np.asarray(out_s)).max(), 1e-9)
-    np.testing.assert_allclose(
-        np.asarray(out_k) / scale_ref, np.asarray(out_s) / scale_ref,
-        rtol=0, atol=1e-6, err_msg=name,
-    )
+    n_params, param_fn, lane_f = lane_spec(model)
+    nx, nu = model.state_dim, model.control_dim
+    x = jnp.asarray(x0, jnp.float64)
+    u = _controls(model, scale, N=1)[0].astype(jnp.float64)
+    p = [v for v in jnp.asarray(param_fn(model), jnp.float64)][:n_params]
+    Fx, Fu = _jvp_deriv(lane_f, nx, nu)(list(x), list(u), p)
+    got_x = np.asarray([[float(Fx[i][j]) for j in range(nx)]
+                        for i in range(nx)])
+    got_u = np.asarray([[float(Fu[i][j]) for j in range(nu)]
+                        for i in range(nx)])
+    want_x, want_u = model.jacobians(x, u, 0.0)
+    scale_x = max(np.abs(np.asarray(want_x)).max(), 1.0)
+    scale_u = max(np.abs(np.asarray(want_u)).max(), 1.0)
+    np.testing.assert_allclose(got_x / scale_x, np.asarray(want_x) / scale_x,
+                               rtol=0, atol=1e-10, err_msg=name)
+    np.testing.assert_allclose(got_u / scale_u, np.asarray(want_u) / scale_u,
+                               rtol=0, atol=1e-10, err_msg=name)

@@ -27,7 +27,7 @@ def test_banner_and_options_dump(capsys):
     assert "cddp-tpu" in out
     assert "solver: CLDDP" in out
     assert "max_iterations = 1" in out
-    assert "backward_engine" in out
+    assert "solve_engine" in out
 
     # default-off: silent
     clddp.solve(prob, ct.CDDPOptions(max_iterations=1))
@@ -58,3 +58,37 @@ def test_debug_flag_prints_backward_internals(capfd):
     sol = ct.solve(prob, "CLDDP", ct.CDDPOptions(max_iterations=2, debug=True))
     out = capfd.readouterr().out
     assert "[debug:CLDDP]" in out and "backward ok=" in out
+
+
+def test_union_ns_merges_overlaps():
+    from cddp_tpu.utils.profiling import _union_ns
+
+    assert _union_ns([(0, 10), (5, 15), (20, 25), (21, 22)]) == 20
+    assert _union_ns([]) == 0
+
+
+def test_device_busy_reads_a_recorded_trace(tmp_path):
+    """The busy-share reduction on a CPU trace: the XLA:CPU client's
+    thread line stands in for a GPU stream."""
+    import glob
+
+    import jax
+
+    from cddp_tpu.utils.profiling import device_busy
+
+    f = jax.jit(lambda x: jnp.sin(x) @ x)
+    x = jnp.ones((64, 64))
+    f(x).block_until_ready()
+    with jax.profiler.trace(str(tmp_path)):
+        with jax.profiler.TraceAnnotation("probe_window"):
+            for _ in range(3):
+                y = f(x)
+            y.block_until_ready()
+    path, = glob.glob(str(tmp_path / "plugins/profile/*/*.xplane.pb"))
+    got = device_busy(path, plane_prefix="/host:CPU", line_prefix="tf_XLA")
+    assert got["n_events"] > 0
+    assert 0 < got["busy_ns"] <= got["window_ns"]
+    assert got["busy_share"] == got["busy_ns"] / got["window_ns"]
+    assert any("sine" in name for name, _ in got["top"])
+    none = device_busy(path)  # no GPU planes in a CPU trace
+    assert none["n_events"] == 0 and none["busy_share"] == 0

@@ -9,7 +9,7 @@ cddp_tpu/refine.py):
   restart, certifying 1e-6 in a handful of iterations (7 vs 20 cold
   measured).
 * NON-converged f32 solution (the unreachable-goal family where NEITHER
-  f32 engine certifies tol=1e-4 — test_mega_ipddp.py's envelope test) ->
+  f32 engine certifies tol=1e-4) ->
   trajectory-seeded re-solve; dual-warming from the bad duals would be
   slower than cold (268 vs 241 iterations measured), so polish must not
   take that path.
@@ -33,8 +33,8 @@ from cddp_tpu.solution import Status
 def _unicycle_box(dtype, goal=(2.0, 2.0, np.pi / 2)):
     """The flagship unicycle box MPC. The default goal is UNREACHABLE in
     the horizon (v_max * T = 2 < |[2,2]| = 2.83), saturating the box the
-    whole horizon — the family where f32 cannot certify tol=1e-4
-    (test_mega_ipddp.py's envelope test). goal=(0.8, 0.6, pi/2) is the
+    whole horizon — the family where f32 cannot certify tol=1e-4.
+    goal=(0.8, 0.6, pi/2) is the
     reachable variant where f32 converges."""
     dt, N = 0.05, 20
     obj = ct.quadratic_objective(
